@@ -1,0 +1,123 @@
+"""ORB extraction: FAST + grid top-k + IC angle + rBRIEF on every level.
+
+Port of trackingbench_slam_tpu/models/extractors.py (extract_orb and its
+helpers), following the reference's TPU branch: the FAST kernel
+(ops/cuda/fast_kernel.py) scores each level, the patch crop kernel
+(ops/cuda/patch_kernel.py) cuts 32x32 patches from the raw level for the IC
+angle and from the blurred level for BRIEF.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+from trackingbench_slam_tpu_torch.models.frame import (FrameState,
+                                                       with_keypoints)
+from trackingbench_slam_tpu_torch.ops import fast as fast_ops
+from trackingbench_slam_tpu_torch.ops import image as image_ops
+from trackingbench_slam_tpu_torch.ops import orb as orb_ops
+from trackingbench_slam_tpu_torch.ops.cuda.fast_kernel import fast_score_nms
+from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import \
+    extract_patches32
+from trackingbench_slam_tpu_torch.utils.config import (ExtractorConfig,
+                                                       PyramidConfig)
+
+
+def detect_scores(img: torch.Tensor, threshold: float, arc: int):
+    """NMS'd FAST score map (the FAST kernel)."""
+    return fast_score_nms(img, threshold, arc)
+
+
+def level_budgets(total: int, num_levels: int, scale: float) -> list[int]:
+    """Geometric per-level split, sum == total."""
+    weights = [scale ** lvl for lvl in range(num_levels)]
+    s = sum(weights)
+    out = [int(round(total * w / s)) for w in weights]
+    out[0] += total - sum(out)
+    return out
+
+
+def occupancy_mask(shape_hw, existing_xy: torch.Tensor,
+                   existing_valid: torch.Tensor, radius: int) -> torch.Tensor:
+    """(H, W) float mask, 0 within `radius` (Chebyshev) of any valid
+    keypoint. The reference builds the presence image with a one-hot matrix
+    product to avoid TPU scatters; an indexed write followed by max-pool
+    dilation gives the same mask."""
+    h, w = shape_hw
+    xi = torch.round(existing_xy[:, 0]).clamp(0, w - 1).long()
+    yi = torch.round(existing_xy[:, 1]).clamp(0, h - 1).long()
+    occ = torch.zeros((h, w), dtype=torch.float32, device=existing_xy.device)
+    occ.index_put_((yi, xi), existing_valid.float(), accumulate=True)
+    occ = (occ > 0.0).float()
+    k = 2 * radius + 1
+    occ = F.max_pool2d(occ[None, None], k, stride=1, padding=radius)[0, 0]
+    return 1.0 - occ
+
+
+def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
+                config: ExtractorConfig, pyr_cfg: PyramidConfig,
+                suppress_xy: torch.Tensor | None = None,
+                suppress_valid: torch.Tensor | None = None) -> FrameState:
+    """ORB over the frame's pyramid; with suppress_xy/valid it behaves like
+    AddPoints (no keypoints near live features)."""
+    num_levels = len(frame.pyramid)
+    budgets = level_budgets(config.num_features, num_levels,
+                            pyr_cfg.scale_factor)
+    dev = frame.kp_xy.device
+    all_xy, all_resp, all_valid, all_level, all_angle, all_desc = (
+        [], [], [], [], [], [])
+    for lvl in range(num_levels):
+        img = frame.pyramid[lvl]
+        s = pyr_cfg.scale_factor ** lvl
+        score = detect_scores(img, float(config.min_threshold),
+                              config.fast_arc)
+        strong = None
+        if config.init_threshold > config.min_threshold:
+            strong = detect_scores(img, float(config.init_threshold),
+                                   config.fast_arc) > 0
+        if suppress_xy is not None:
+            m = occupancy_mask(img.shape, suppress_xy * s, suppress_valid,
+                               max(int(10 * s), 2))
+            score = score * m
+        cell = max(int(config.cell_size * s), 8)
+        xy, resp, valid = fast_ops.grid_topk(score, cell, per_cell=4,
+                                             budget=budgets[lvl],
+                                             strong=strong)
+        blurred = image_ops.gaussian_blur(img)
+        # the IC angle comes from the pre-blur patches, BRIEF from the
+        # blurred ones (as the reference computes them)
+        patches = extract_patches32(img, xy)
+        angle = torch.where(valid, orb_ops.ic_angle_from_patches(patches),
+                            torch.zeros_like(resp))
+        desc = orb_ops.brief_from_patches(extract_patches32(blurred, xy),
+                                          angle, valid)
+        all_xy.append(xy / s)
+        all_resp.append(resp)
+        all_valid.append(valid)
+        all_level.append(torch.full((budgets[lvl],), lvl, dtype=torch.int32,
+                                    device=dev))
+        all_angle.append(angle)
+        all_desc.append(desc)
+    kp_xy = torch.cat(all_xy)
+    resp = torch.cat(all_resp)
+    valid = torch.cat(all_valid)
+    level = torch.cat(all_level)
+    angle = torch.cat(all_angle)
+    desc = torch.cat(all_desc)
+    cap = frame.capacity
+    n = kp_xy.shape[0]
+    if n < cap:
+        def pad(x, value=0):
+            tail = torch.full((cap - n,) + tuple(x.shape[1:]), value,
+                              dtype=x.dtype, device=dev)
+            return torch.cat([x, tail])
+        kp_xy, resp, valid = pad(kp_xy, -1.0), pad(resp), pad(valid)
+        level, angle, desc = pad(level), pad(angle), pad(desc)
+    elif n > cap:
+        key = torch.where(valid, -resp, torch.full_like(resp, 1e9))
+        order = torch.sort(key, stable=True).indices[:cap]
+        kp_xy, resp, valid = kp_xy[order], resp[order], valid[order]
+        level, angle, desc = level[order], angle[order], desc[order]
+    return with_keypoints(frame, cam, kp_xy, level, angle, resp, desc, valid)

@@ -1,0 +1,61 @@
+"""The main-path configuration and its corridor frames.
+
+`main_path_config()` is the stereo-VO operating point that bench.py times
+(bench.py:51-76: 1226x370, 2000 ORB features, 3-level x0.8 pyramid, a
+keyframe every 5th frame, 16384 landmarks, 16 keyframes) with windowed BA
+off (local_ba_every = 0), the configuration this package runs end to end.
+`corridor_frames()` renders the same sequence as bench.py's render_frames:
+forward motion with a continuous yaw down the multi-plane corridor, right
+images on the bootstrap frame and on keyframes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from trackingbench_slam_tpu_torch.utils.config import (CameraConfig,
+                                                       ExtractorConfig,
+                                                       MapConfig,
+                                                       PipelineConfig,
+                                                       PyramidConfig,
+                                                       SolverConfig)
+from trackingbench_slam_tpu_torch.utils.synthetic import (
+    CorridorScene, forward_yaw_trajectory)
+
+BASELINE = 0.54
+
+
+def main_path_config() -> PipelineConfig:
+    cam = CameraConfig(width=1226, height=370, fx=707.09, fy=707.09,
+                       cx=601.89, cy=183.11, bf=707.09 * BASELINE)
+    return PipelineConfig(
+        camera=cam,
+        pyramid=PyramidConfig(num_levels=3, scale_factor=0.8),
+        extractor=ExtractorConfig(num_features=2000, min_threshold=12,
+                                  cell_size=24),
+        map=MapConfig(max_keyframes=16, max_points=16384),
+        keyframe_every=5,
+        local_ba_every=0,
+        solver=dataclasses.replace(SolverConfig(), max_landmarks=2048),
+    )
+
+
+def corridor_frames(cfg: PipelineConfig, n: int, baseline: float = BASELINE):
+    """[(left uint8, right uint8 or None)] and the (n, 4, 4) world->camera
+    ground truth."""
+    scene = CorridorScene(cfg.camera, width=10.0, height=5.0)
+    gt = forward_yaw_trajectory(n, step=0.12, yaw_rate=0.01)
+
+    def u8(a):
+        return np.clip(a, 0, 255).astype(np.uint8)
+
+    frames = []
+    for i, T in enumerate(gt):
+        if i == 0 or (i + 1) % cfg.keyframe_every == 0:
+            left, right = scene.stereo_pair(T, baseline)
+            frames.append((u8(left), u8(right)))
+        else:
+            frames.append((u8(scene.render(T)), None))
+    return frames, gt, scene
