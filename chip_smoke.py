@@ -8,10 +8,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA kernel (csrc/*.cu), one nvcc each, in parallel;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the main path's shapes on the first rendered corridor frames
-     (FAST and patch crop exact; LK xy within 1e-3 px where both converged
-     and converged flags agreeing on >= 99% of points), both timed with CUDA
-     events after a warm-up;
+     card, at the main path's calls on the first rendered corridor frames
+     (trackingbench_slam_tpu_torch/kernel_bench.py `kernel_inputs`): FAST
+     as one launch over the 3-level ORB pyramid, exact on every level; the
+     patch crop exact; LK as one launch per call (track 2 levels, stereo 2
+     levels + back-track, bootstrap stereo 4 levels + back-track, anchored),
+     xy within 1e-3 px where both converged, converged and back-track flags
+     agreeing on >= 99% of points; both timed with CUDA events after a
+     warm-up;
   4. main path: StereoVO at bench.py's configuration with windowed BA off,
      40 corridor frames, frames/s after an 11-frame warm-up; every kernel's
      launch counter must move, ATE < 0.01 m, > 500 pose inliers at the end;
@@ -43,45 +47,6 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def _events_ms(run, reps):
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_ms(fn, reps):
-    """(device ms, host ms) per call. Device: `reps` calls captured in one
-    CUDA graph and replayed, so the host's launch cost is out of the
-    measurement. Host: the same calls launched eagerly, timed with CUDA
-    events (what the eager main path pays per call)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-
-    def eager():
-        for _ in range(reps):
-            fn()
-
-    host = _events_ms(eager, reps)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        eager()
-    graph.replay()
-    torch.cuda.synchronize()
-    device = _events_ms(graph.replay, reps)
-    del graph
-    return device, host
 
 
 def bound(nbytes, flops):
@@ -116,37 +81,51 @@ def covered_pixels(shape, blocks):
 FAST_OPS_PER_PIXEL = 16 + 16 * 8 + 2 * (32 + 16) + 3 + 16
 
 
-def fast_flops(h, w):
-    return h * w * FAST_OPS_PER_PIXEL
+def fast_flops(shapes):
+    return sum(h * w for h, w in shapes) * FAST_OPS_PER_PIXEL
 
 
-def lk_work(prev, cur, pts, init, valid, kw):
-    """The work the LK function needs on these inputs: which points run,
-    their template builds and their point-iterations (forward and back),
-    read off the plain version's iteration loop (lk_kernel._run) during one
-    call of it."""
+def lk_work(prev_pyr, cur_pyr, pts, start, valid, kw):
+    """The work the LK function needs on these inputs, level by level
+    (coarsest first): which points run, their template positions and last
+    positions, template builds and point-iterations (forward and back),
+    read off the plain version (lk_kernel.patch_align_plain and its
+    iteration loop lk_kernel._run) during one call of it."""
     from trackingbench_slam_tpu_torch.ops.cuda import lk_kernel
-    loops = []
-    real_run = lk_kernel._run
+    levels = []
+    real_run, real_align = lk_kernel._run, lk_kernel.patch_align_plain
 
-    def observed(*args):
+    def observed_run(*args):
         out = real_run(*args)
-        loops.append((args[9], out[5]))   # (points entering, iterations)
+        levels[-1]["loops"].append((args[9], out[5]))   # (entering, iters)
         return out
 
-    lk_kernel._run = observed
+    def observed_align(prev, cur, tpl_xy, init, *args):
+        levels.append(dict(prev=tuple(prev.shape), cur=tuple(cur.shape),
+                           tpl_xy=tpl_xy, loops=[]))
+        out = real_align(prev, cur, tpl_xy, init, *args)
+        levels[-1]["xy"] = out[0]
+        return out
+
+    lk_kernel._run = observed_run
+    lk_kernel.patch_align_plain = observed_align
     try:
-        lk_kernel.patch_align_plain(prev, cur, pts, init, valid, **kw)
+        lk_kernel.lk_align_plain(prev_pyr, cur_pyr, pts, start, valid, **kw)
     finally:
         lk_kernel._run = real_run
-    return dict(run=loops[0][0],
+        lk_kernel.patch_align_plain = real_align
+    for lv in levels:
+        lv["run"] = lv["loops"][0][0]
+    loops = [lp for lv in levels for lp in lv["loops"]]
+    return dict(levels=levels, run=levels[-1]["run"],
                 templates=sum(int(r.sum()) for r, _ in loops),
                 iterations=sum(int(n.sum()) for _, n in loops))
 
 
 # LK: a bilinear tap is 9 flops; a template pixel adds 2 gradients (4) and
 # 5 sums (8); an iteration pixel a residual and 3 sums (6); the error pass
-# a residual, abs and sum (3).
+# (level 0 only: the function returns that level's error) a residual, abs
+# and sum (3).
 def lk_flops(work, half):
     P = 2 * half + 1
     return (work["templates"] * ((P + 2) ** 2 * 9 + P * P * 12)
@@ -154,51 +133,59 @@ def lk_flops(work, half):
             + int(work["run"].sum()) * P * P * 12)
 
 
-def lk_bytes(prev, cur, pts, xy, conv, work, half, fb):
-    """Pixels under the run points' templates in prev ((P+3)^2 each) and
-    under their last search sample in cur ((P+1)^2, or the (P+3)^2
-    back-track template where one is built), plus the point I/O."""
+def lk_bytes(work, n, half, fb, offset):
+    """At every level, the pixels under the run points' templates in prev
+    ((P+3)^2 each) and under their last search sample in cur ((P+1)^2, and
+    at level 0 the (P+3)^2 back-track template where one is built), plus
+    the point I/O."""
     import torch
     P = 2 * half + 1
-    run = work["run"]
-    t = torch.floor(pts[run]).long()
-    x = torch.floor(xy[run]).long()
-    blocks = [(x[:, 1] - half, x[:, 0] - half, P + 1)]
-    if fb:
-        xb = torch.floor(xy[run & conv]).long()
-        blocks.append((xb[:, 1] - half - 1, xb[:, 0] - half - 1, P + 3))
-    px = (covered_pixels(prev.shape, [(t[:, 1] - half - 1, t[:, 0] - half - 1,
-                                       P + 3)])
-          + covered_pixels(cur.shape, blocks))
-    n = pts.shape[0]
-    return 4 * px + n * 17 + n * (13 + (5 if fb else 0))
+    px = 0
+    for i, lv in enumerate(work["levels"]):
+        run = lv["run"]
+        t = torch.floor(lv["tpl_xy"][run]).long()
+        x = torch.floor(lv["xy"][run]).long()
+        blocks = [(x[:, 1] - half, x[:, 0] - half, P + 1)]
+        if fb and i == len(work["levels"]) - 1:
+            back = lv["loops"][1][0]   # the points the back-track ran
+            xb = torch.floor(lv["xy"][back]).long()
+            blocks.append((xb[:, 1] - half - 1, xb[:, 0] - half - 1, P + 3))
+        px += (covered_pixels(lv["prev"], [(t[:, 1] - half - 1,
+                                             t[:, 0] - half - 1, P + 3)])
+               + covered_pixels(lv["cur"], blocks))
+    inputs = n * (17 + (8 if offset else 0))
+    return 4 * px + inputs + n * (13 + (5 if fb else 0))
 
 
 def check_fast(pyr, threshold, arc):
+    """The batched launch over the ORB pyramid, exact on every level."""
     import torch
+    from trackingbench_slam_tpu_torch.kernel_bench import time_ms
     from trackingbench_slam_tpu_torch.ops.cuda import fast_kernel
-    cases = []
-    for img in pyr:
-        got = fast_kernel.fast_score_nms_cuda(img, threshold, arc)
+    got = fast_kernel.fast_score_nms_cuda(pyr, threshold, arc)
+    levels, err = [], 0.0
+    for img, g in zip(pyr, got):
         ref = fast_kernel.fast_score_nms_plain(img, threshold, arc)
-        err = float((got - ref).abs().max())
-        if not torch.equal(got, ref):
+        e = float((g - ref).abs().max())
+        if not torch.equal(g, ref):
             raise AssertionError(f"FAST kernel differs on {tuple(img.shape)}:"
-                                 f" max |diff| {err}")
-        h, w = img.shape
-        ms, host_ms = time_ms(lambda: fast_kernel.fast_score_nms_cuda(
-            img, threshold, arc), 50)
-        plain_ms, _ = time_ms(lambda: fast_kernel.fast_score_nms_plain(
-            img, threshold, arc), 5)
-        b, by = bound(h * w * 8, fast_flops(h, w))
-        cases.append(dict(shape=[h, w], max_abs_err=err, ms=ms,
-                          host_ms=host_ms, plain_ms=plain_ms, bound_ms=b,
-                          bound_by=by, corners=int((got > 0).sum())))
-    return cases
+                                 f" max |diff| {e}")
+        err = max(err, e)
+        levels.append(dict(shape=list(img.shape), corners=int((g > 0).sum())))
+    ms, host_ms = time_ms(lambda: fast_kernel.fast_score_nms_cuda(
+        pyr, threshold, arc), 50)
+    plain_ms, _ = time_ms(lambda: [fast_kernel.fast_score_nms_plain(
+        img, threshold, arc) for img in pyr], 5)
+    shapes = [tuple(img.shape) for img in pyr]
+    b, by = bound(sum(h * w for h, w in shapes) * 8, fast_flops(shapes))
+    return [dict(case=f"{len(pyr)}-level ORB pyramid, one launch",
+                 levels=levels, max_abs_err=err, ms=ms, host_ms=host_ms,
+                 plain_ms=plain_ms, bound_ms=b, bound_by=by)]
 
 
 def check_patch(named_inputs):
     import torch
+    from trackingbench_slam_tpu_torch.kernel_bench import time_ms
     from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
     cases = []
     for name, img, centers in named_inputs:
@@ -221,13 +208,18 @@ def check_patch(named_inputs):
     return cases
 
 
-def check_lk(named_inputs):
+def check_lk(cases):
     import torch
+    from trackingbench_slam_tpu_torch.kernel_bench import time_ms
     from trackingbench_slam_tpu_torch.ops.cuda import lk_kernel
-    cases = []
-    for name, prev, cur, pts, init, valid, kw in named_inputs:
-        got = lk_kernel.patch_align_cuda(prev, cur, pts, init, valid, **kw)
-        ref = lk_kernel.patch_align_plain(prev, cur, pts, init, valid, **kw)
+    out = []
+    for name, _, prev, cur, pts, start, valid, kw in cases:
+        args = (prev, cur, pts, start, valid)
+        before = lk_kernel.lk_align_cuda.launches
+        got = lk_kernel.lk_align_cuda(*args, **kw)
+        launches = lk_kernel.lk_align_cuda.launches - before
+        ref = lk_kernel.lk_align_plain(*args, **kw)
+        torch.cuda.synchronize()
         both = got[1] & ref[1]
         agree = float((got[1] == ref[1]).float().mean())
         err = float((got[0] - ref[0])[both].abs().max()) if bool(
@@ -235,89 +227,33 @@ def check_lk(named_inputs):
         if agree < 0.99 or err > 1e-3 or int(both.sum()) == 0:
             raise AssertionError(f"LK kernel differs ({name}): flags agree "
                                  f"{agree:.4f}, max |dxy| {err}")
+        fb = kw.get("fb_iters", 0) > 0
         fb_agree = None
-        if kw.get("fb_iters", 0):
+        if fb:
             fb_agree = float((got[3] == ref[3]).float().mean())
             if fb_agree < 0.99:
                 raise AssertionError(f"LK fb flags differ ({name}): "
                                      f"{fb_agree:.4f}")
         n = pts.shape[0]
-        ms, host_ms = time_ms(lambda: lk_kernel.patch_align_cuda(
-            prev, cur, pts, init, valid, **kw), 20)
-        plain_ms, _ = time_ms(lambda: lk_kernel.patch_align_plain(
-            prev, cur, pts, init, valid, **kw), 3)
-        work = lk_work(prev, cur, pts, init, valid, kw)
-        fb = kw.get("fb_iters", 0) > 0
-        b, by = bound(lk_bytes(prev, cur, pts, ref[0], ref[1], work,
-                               kw["half"], fb),
+        ms, host_ms = time_ms(lambda: lk_kernel.lk_align_cuda(*args, **kw),
+                              20)
+        plain_ms, _ = time_ms(lambda: lk_kernel.lk_align_plain(*args, **kw),
+                              3)
+        work = lk_work(*args, kw)
+        b, by = bound(lk_bytes(work, n, kw["half"], fb,
+                               kw.get("offset") is not None),
                       lk_flops(work, kw["half"]))
-        cases.append(dict(case=name, shape=list(cur.shape), n=n,
-                          converged=int(ref[1].sum()), flags_agree=agree,
-                          fb_flags_agree=fb_agree,
-                          max_abs_err=err, ms=ms, host_ms=host_ms,
-                          plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                          work=dict(points_run=int(work["run"].sum()),
-                                    templates=work["templates"],
-                                    iterations=work["iterations"])))
-    return cases
-
-
-def kernel_inputs(cfg, frames, scene, gt):
-    """Main-path inputs: the bootstrap keyframe's state and the next frame."""
-    import torch
-    from trackingbench_slam_tpu_torch.models import map as map_mod
-    from trackingbench_slam_tpu_torch.models.frame import make_frame
-    from trackingbench_slam_tpu_torch.models.vo import StereoVO
-    from trackingbench_slam_tpu_torch.ops.align import lk_pyramidal
-    dev = torch.device("cuda")
-    vo = StereoVO(cfg)
-    state = vo.track(*frames[0])
-    f0 = state.prev
-    f1 = make_frame(torch.from_numpy(frames[1][0]).to(dev),
-                    cfg.extractor.num_features, cfg.pyramid.num_levels,
-                    cfg.pyramid.scale_factor)
-    right = make_frame(torch.from_numpy(frames[0][1]).to(dev), 1,
-                       cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
-    pts, valid = f0.kp_xy, f0.valid
-    lk = dict(half=10, iters=30, conv_eps=0.01)
-    # track, 2 levels: level 1 from pts, level 0 from the level-1 result
-    lvl1 = lk_pyramidal(f0.lk_pyr, f1.lk_pyr, pts, valid, 0.5, num_levels=2)
-    init1 = pts * 0.5
-    xy1 = lk_pyramidal(f0.lk_pyr[1:], f1.lk_pyr[1:], pts * 0.5, valid, 0.5,
-                       num_levels=1).xy
-    # stereo level 0: start from the true disparity of the rendered scene
-    depth = torch.from_numpy(scene.depth_map(gt[0])).to(dev)
-    xi = pts[:, 0].round().clamp(0, cfg.camera.width - 1).long()
-    yi = pts[:, 1].round().clamp(0, cfg.camera.height - 1).long()
-    z = torch.clamp(depth[yi, xi], min=0.5)
-    init_st = pts - torch.stack([cfg.camera.bf / z, torch.zeros_like(z)], -1)
-    # anchored: atlas templates of the bootstrap landmarks, searched in the
-    # next frame from the tracked positions
-    m = state.map
-    mp = f0.map_idx.clamp(0, m.capacity - 1).long()
-    has_anchor = (f0.map_idx >= 0) & valid & m.valid[mp]
-    centers = map_mod.atlas_cell_centers(mp, m.atlas_grid)
-    lk_inputs = [
-        ("track level 1", f0.lk_pyr[1], f1.lk_pyr[1], pts * 0.5, init1,
-         valid, lk),
-        ("track level 0", f0.lk_pyr[0], f1.lk_pyr[0], pts, xy1 * 2.0, valid,
-         lk),
-        ("stereo level 0 + fb", f0.lk_pyr[0], right.lk_pyr[0], pts, init_st,
-         valid, dict(lk, fb_iters=10)),
-        ("anchored", m.anchor_atlas, f1.lk_pyr[0], centers, lvl1.xy,
-         has_anchor & lvl1.converged, dict(half=4, iters=10, conv_eps=0.03)),
-    ]
-    budgets = [int((f0.kp_level == lvl).sum()) for lvl in range(3)]
-    patch_inputs = []
-    for lvl, img in enumerate(f0.pyramid):
-        s = cfg.pyramid.scale_factor ** lvl
-        sel = f0.kp_level == lvl
-        patch_inputs.append((f"ORB level {lvl}", img,
-                             (pts[sel] * s).contiguous()))
-    x0 = torch.floor(pts)
-    patch_inputs.append(("anchor capture", f0.lk_pyr[0],
-                         (x0 + 7.0).contiguous()))
-    return f0.pyramid, lk_inputs, patch_inputs, budgets
+        out.append(dict(case=name, levels=len(prev), shape=list(cur[0].shape),
+                        n=n, launches_per_call=launches,
+                        converged=int(ref[1].sum()), flags_agree=agree,
+                        fb_flags_agree=fb_agree, max_abs_err=err, ms=ms,
+                        host_ms=host_ms, plain_ms=plain_ms, bound_ms=b,
+                        bound_by=by,
+                        work=dict(points_run=[int(lv["run"].sum())
+                                              for lv in work["levels"]],
+                                  templates=work["templates"],
+                                  iterations=work["iterations"])))
+    return out
 
 
 def main():
@@ -330,6 +266,7 @@ def main():
     sys.path.insert(0, here)
     import numpy as np
     import trackingbench_slam_tpu_torch  # noqa: F401  (precision pins)
+    from trackingbench_slam_tpu_torch.kernel_bench import kernel_inputs
     from trackingbench_slam_tpu_torch.ops.cuda import (build, fast_kernel,
                                                        lk_kernel,
                                                        patch_kernel)
@@ -366,8 +303,10 @@ def main():
     fast_cases = check_fast(pyr, float(cfg.extractor.min_threshold),
                             cfg.extractor.fast_arc)
     log("[check] fast_score_nms exact on "
-        + ", ".join(f"{c['shape'][0]}x{c['shape'][1]} ({c['ms']:.4f} ms, "
-                    f"plain {c['plain_ms']:.3f} ms)" for c in fast_cases))
+        + ", ".join(f"{lv['shape'][0]}x{lv['shape'][1]}"
+                    for lv in fast_cases[0]["levels"])
+        + f" in one launch ({fast_cases[0]['ms']:.4f} ms, plain "
+          f"{fast_cases[0]['plain_ms']:.3f} ms)")
     patch_cases = check_patch(patch_inputs)
     log("[check] extract_patches32 exact on "
         + ", ".join(f"{c['case']} N={c['n']} ({c['ms']:.4f} ms, plain "
@@ -376,10 +315,10 @@ def main():
     log("[check] lk_align within 1e-3 px on "
         + ", ".join(f"{c['case']} N={c['n']} conv {c['converged']} agree "
                     f"{c['flags_agree']:.4f} err {c['max_abs_err']:.2e} "
-                    f"({c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms)"
-                    for c in lk_cases))
+                    f"{c['launches_per_call']} launch ({c['ms']:.4f} ms, "
+                    f"plain {c['plain_ms']:.3f} ms)" for c in lk_cases))
 
-    counters = {"lk_align": lk_kernel.patch_align_cuda,
+    counters = {"lk_align": lk_kernel.lk_align_cuda,
                 "fast_score_nms": fast_kernel.fast_score_nms_cuda,
                 "extract_patches32": patch_kernel.extract_patches32_cuda}
     for fn in counters.values():
@@ -425,7 +364,7 @@ def main():
     kernels = [
         entry("lk_align", "trackingbench_slam_tpu_torch/csrc/lk.cu",
               "trackingbench_slam_tpu/ops/pallas/lk_kernel.py:347",
-              lk_cases[1], lk_cases),
+              lk_cases[0], lk_cases),
         entry("fast_score_nms", "trackingbench_slam_tpu_torch/csrc/fast.cu",
               "trackingbench_slam_tpu/ops/pallas/fast_kernel.py:126",
               fast_cases[0], fast_cases),

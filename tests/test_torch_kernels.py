@@ -193,7 +193,7 @@ def _wrapper_calls(device):
                  (img, 12.0, 9)),
         "patch": (patch_kernel.extract_patches32,
                   patch_kernel.extract_patches32_cuda, (img, pts)),
-        "lk": (lk_kernel.patch_align, lk_kernel.patch_align_cuda,
+        "lk": (lk_kernel.patch_align, lk_kernel.lk_align_cuda,
                (img, img, pts, pts, valid)),
     }
 

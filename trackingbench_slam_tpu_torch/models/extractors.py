@@ -2,9 +2,9 @@
 
 Port of trackingbench_slam_tpu/models/extractors.py (extract_orb and its
 helpers), following the reference's TPU branch: the FAST kernel
-(ops/cuda/fast_kernel.py) scores each level, the patch crop kernel
-(ops/cuda/patch_kernel.py) cuts 32x32 patches from the raw level for the IC
-angle and from the blurred level for BRIEF.
+(ops/cuda/fast_kernel.py) scores all levels in one launch, then the patch
+crop kernel (ops/cuda/patch_kernel.py) cuts 32x32 patches from each raw
+level for the IC angle and from the blurred level for BRIEF.
 """
 
 from __future__ import annotations
@@ -18,16 +18,17 @@ from trackingbench_slam_tpu_torch.models.frame import (FrameState,
 from trackingbench_slam_tpu_torch.ops import fast as fast_ops
 from trackingbench_slam_tpu_torch.ops import image as image_ops
 from trackingbench_slam_tpu_torch.ops import orb as orb_ops
-from trackingbench_slam_tpu_torch.ops.cuda.fast_kernel import fast_score_nms
+from trackingbench_slam_tpu_torch.ops.cuda.fast_kernel import \
+    fast_score_nms_levels
 from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import \
     extract_patches32
 from trackingbench_slam_tpu_torch.utils.config import (ExtractorConfig,
                                                        PyramidConfig)
 
 
-def detect_scores(img: torch.Tensor, threshold: float, arc: int):
-    """NMS'd FAST score map (the FAST kernel)."""
-    return fast_score_nms(img, threshold, arc)
+def detect_scores(pyramid, threshold: float, arc: int) -> list[torch.Tensor]:
+    """NMS'd FAST score map of every pyramid level (the FAST kernel)."""
+    return fast_score_nms_levels(pyramid, threshold, arc)
 
 
 def level_budgets(total: int, num_levels: int, scale: float) -> list[int]:
@@ -66,17 +67,19 @@ def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
     budgets = level_budgets(config.num_features, num_levels,
                             pyr_cfg.scale_factor)
     dev = frame.kp_xy.device
+    # every level's score map first: one kernel launch per threshold
+    scores = detect_scores(frame.pyramid, float(config.min_threshold),
+                           config.fast_arc)
+    strongs = [None] * num_levels
+    if config.init_threshold > config.min_threshold:
+        strongs = [s > 0 for s in detect_scores(
+            frame.pyramid, float(config.init_threshold), config.fast_arc)]
     all_xy, all_resp, all_valid, all_level, all_angle, all_desc = (
         [], [], [], [], [], [])
     for lvl in range(num_levels):
         img = frame.pyramid[lvl]
         s = pyr_cfg.scale_factor ** lvl
-        score = detect_scores(img, float(config.min_threshold),
-                              config.fast_arc)
-        strong = None
-        if config.init_threshold > config.min_threshold:
-            strong = detect_scores(img, float(config.init_threshold),
-                                   config.fast_arc) > 0
+        score, strong = scores[lvl], strongs[lvl]
         if suppress_xy is not None:
             m = occupancy_mask(img.shape, suppress_xy * s, suppress_valid,
                                max(int(10 * s), 2))

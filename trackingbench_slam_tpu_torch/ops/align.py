@@ -1,9 +1,11 @@
 """Pyramidal and anchored patch alignment on top of the LK kernel.
 
 Port of trackingbench_slam_tpu/ops/align.py (`lk_pyramidal`,
-`anchored_align`) in its TPU form: every level goes through the LK kernel
-(ops/cuda/lk_kernel.py) with the Pallas semantics. The reference's CPU
-branch (align_patches with gradients sampled at +-0.5 px) is not ported.
+`anchored_align`) in its TPU form, with the Pallas semantics at every
+level: on the card each call is one launch of the LK kernel for all its
+levels (ops/cuda/lk_kernel.py `lk_align`), on the CPU the same level loop
+over the plain version. The reference's CPU branch (align_patches with
+gradients sampled at +-0.5 px) is not ported.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from trackingbench_slam_tpu_torch.ops.cuda.lk_kernel import patch_align
+from trackingbench_slam_tpu_torch.ops.cuda.lk_kernel import (lk_align,
+                                                            patch_align)
 
 
 class AlignResult(NamedTuple):
@@ -43,24 +46,7 @@ def lk_pyramidal(prev_pyr, cur_pyr, pts: torch.Tensor, valid: torch.Tensor,
     `num_levels` levels, from `pts + init_offset`; the forward-backward
     check (fb_iters > 0) runs at level 0 only."""
     levels = min(num_levels, len(prev_pyr))
-    start = pts if init_offset is None else pts + init_offset
-    xy = start * (scale ** (levels - 1))
-    conv = valid
-    err = torch.full((pts.shape[0],), float("inf"), dtype=pts.dtype,
-                     device=pts.device)
-    fb_conv = fb_d2 = None
-    for lvl in range(levels - 1, -1, -1):
-        s = scale ** lvl
-        tpl_xy = pts * s
-        fb_here = fb_iters if lvl == 0 else 0
-        out = patch_align(prev_pyr[lvl], cur_pyr[lvl], tpl_xy, xy, valid,
-                          half=half, iters=iters, conv_eps=0.01,
-                          fb_iters=fb_here)
-        if fb_here > 0:
-            xy, conv, err, fb_conv, fb_d2 = out
-        else:
-            xy, conv, err = out
-        if lvl > 0:
-            xy = xy / scale
-    return AlignResult(xy=xy, converged=conv, error=err, fb_conv=fb_conv,
-                       fb_d2=fb_d2)
+    out = lk_align(tuple(prev_pyr[:levels]), tuple(cur_pyr[:levels]), pts,
+                   pts, valid, scale=scale, offset=init_offset, half=half,
+                   iters=iters, conv_eps=0.01, fb_iters=fb_iters)
+    return AlignResult(*out)

@@ -24,9 +24,6 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("lk", "fast", "patch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# lk.cu keeps every float operation separately rounded, as the plain
-# PyTorch version does, so that the two agree to reduction order.
-EXTRA_FLAGS = {"lk": ["--fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +40,8 @@ def _nvcc() -> str:
 
 
 def _flags(name: str) -> list[str]:
-    return (ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                          "-fPIC", "-Xptxas", "-v"]
-            + EXTRA_FLAGS.get(name, []))
+    return ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                         "-fPIC", "-Xptxas", "-v"]
 
 
 def library_path(name: str) -> Path:

@@ -3,12 +3,16 @@ its plain PyTorch version.
 
 Replaces the Pallas TPU kernel `patch_align_pallas`
 (trackingbench_slam_tpu/ops/pallas/lk_kernel.py:347, body `_lk_kernel`).
-`patch_align` launches the CUDA kernel for CUDA tensors and runs
-`patch_align_plain` for CPU tensors; there is no other fallback. Both follow
-the Pallas semantics (see csrc/lk.cu): window bases aligned to 8 rows / 128
-columns, travel bounds local to those windows, one enlarged bilinear sample
-for template and gradients, cofactor inverse, per-point convergence, and an
-optional fused forward-backward re-track.
+`lk_align` aligns N points over a pyramid, coarse to fine, the way
+ops/align.py's `lk_pyramidal` chains the Pallas kernel level by level; for
+CUDA tensors it is one launch of the kernel for all levels, for CPU tensors
+`lk_align_plain`, the same level loop over `patch_align_plain`; there is no
+other fallback. `patch_align` is its one-level case. Both follow the Pallas
+semantics (see csrc/lk.cu): window bases aligned to 8 rows / 128 columns,
+travel bounds local to those windows, one enlarged bilinear sample for
+template and gradients, cofactor inverse, per-point convergence, an
+optional fused forward-backward re-track at level 0, and the final in-image
+check against the template image's level-0 shape.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from trackingbench_slam_tpu_torch.ops.cuda import build
 MARGIN = 12
 WIN_LANES = 256
 MAX_HALF = 15
+MAX_LEVELS = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -42,26 +47,156 @@ def padded_shape(h: int, w: int, half: int) -> tuple[int, int]:
             _round_up(max(w, WIN_LANES + 128), 128))
 
 
-def _check(prev, cur, pts, init_xy, valid, half):
-    if prev.dim() != 2 or cur.dim() != 2:
-        raise ValueError("prev/cur must be (H, W) images")
-    hp, wp = padded_shape(prev.shape[0], prev.shape[1], half)
-    if cur.shape[0] > hp or cur.shape[1] > wp:
-        raise ValueError(f"cur {tuple(cur.shape)} exceeds the template "
-                         f"image's padded shape {(hp, wp)}")
+def level_table(prev_shapes, cur_shapes, half: int, scale: float):
+    """The kernel's per-level arguments, level 0 first: (shapes, scales,
+    start_scale) with shapes the flat (h, w, hc, wc, hp, wp) of each level
+    (template image, search image, template image's padded shape), scales
+    scale ** level, and start_scale the factor that takes level-0 starts to
+    the coarsest level."""
+    shapes, scales = [], []
+    for lvl, ((h, w), (hc, wc)) in enumerate(zip(prev_shapes, cur_shapes)):
+        shapes += [h, w, hc, wc, *padded_shape(h, w, half)]
+        scales.append(scale ** lvl)
+    return shapes, scales, scale ** (len(scales) - 1)
+
+
+def _check(prev_pyr, cur_pyr, pts, start, valid, half, offset=None):
+    if not 1 <= len(prev_pyr) <= MAX_LEVELS or len(cur_pyr) != len(prev_pyr):
+        raise ValueError(f"need 1 to {MAX_LEVELS} levels of prev and cur, got "
+                         f"{len(prev_pyr)} and {len(cur_pyr)}")
+    if not 1 <= half <= MAX_HALF:
+        raise ValueError(f"half must be in [1, {MAX_HALF}], got {half}")
+    for prev, cur in zip(prev_pyr, cur_pyr):
+        if prev.dim() != 2 or cur.dim() != 2:
+            raise ValueError("prev/cur must be (H, W) images")
+        hp, wp = padded_shape(prev.shape[0], prev.shape[1], half)
+        if cur.shape[0] > hp or cur.shape[1] > wp:
+            raise ValueError(f"cur {tuple(cur.shape)} exceeds the template "
+                             f"image's padded shape {(hp, wp)}")
     n = pts.shape[0]
-    if pts.shape != (n, 2) or init_xy.shape != (n, 2) or valid.shape != (n,):
-        raise ValueError("pts/init_xy must be (N, 2) and valid (N,)")
-    for t in (prev, cur, pts, init_xy):
+    if pts.shape != (n, 2) or start.shape != (n, 2) or valid.shape != (n,):
+        raise ValueError("pts/start must be (N, 2) and valid (N,)")
+    tensors = (*prev_pyr, *cur_pyr, pts, start) + (
+        () if offset is None else (offset,))
+    for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"expected float32, got {t.dtype}")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, got {valid.dtype}")
-    devs = {t.device for t in (prev, cur, pts, init_xy, valid)}
+    devs = {t.device for t in (*tensors, valid)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-    if not 1 <= half <= MAX_HALF:
-        raise ValueError(f"half must be in [1, {MAX_HALF}], got {half}")
+
+
+def lk_align(prev_pyr, cur_pyr, pts, start, valid, scale: float = 0.5,
+             offset=None, half: int = 10, iters: int = 30,
+             conv_eps: float = 0.01, fb_iters: int = 0):
+    """Coarse-to-fine LK of level-0 points `pts` from the levels of
+    `prev_pyr` (level 0 first) into those of `cur_pyr`, starting from
+    level-0 positions `start` (+ `offset`, (N, 2) or (2,)), the levels
+    `scale` apart. At every level both images are zero-padded to the padded
+    shape of that level's prev image, and the final in-image check uses
+    prev's level-0 shape, as in the Pallas kernel. For the anchored caller
+    (prev the atlas, cur a smaller frame) the Pallas kernel pads cur by
+    prev's padding only, so a search window past the frame's right or
+    bottom edge reads outside cur; zero padding cur to prev's padded shape
+    is what it computes when cur is that large. Returns (xy (N, 2),
+    converged (N,), err (N,)) and, with fb_iters > 0, also (fb_conv (N,),
+    fb_d2 (N,)) from a back-track at level 0."""
+    if offset is not None and offset.shape != pts.shape:
+        offset = offset.expand(pts.shape).contiguous()
+    _check(prev_pyr, cur_pyr, pts, start, valid, half, offset)
+    kw = dict(scale=scale, offset=offset, half=half, iters=iters,
+              conv_eps=conv_eps, fb_iters=fb_iters)
+    if pts.is_cuda:
+        return lk_align_cuda(prev_pyr, cur_pyr, pts, start, valid, **kw)
+    if pts.device.type != "cpu":
+        raise RuntimeError(f"lk_align: no kernel for {pts.device}")
+    return lk_align_plain(prev_pyr, cur_pyr, pts, start, valid, **kw)
+
+
+def patch_align(prev_img, cur_img, pts, init_xy, valid, half: int = 10,
+                iters: int = 30, conv_eps: float = 0.01, fb_iters: int = 0):
+    """LK for N points at one level: template at `pts` in prev, search in
+    cur from `init_xy` (`lk_align` with one level)."""
+    return lk_align((prev_img,), (cur_img,), pts, init_xy, valid, half=half,
+                    iters=iters, conv_eps=conv_eps, fb_iters=fb_iters)
+
+
+_lk_fn = None
+
+
+def _kernel():
+    global _lk_fn
+    if _lk_fn is None:
+        fn = build.load("lk").lk_align
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        _lk_fn = fn
+    return _lk_fn
+
+
+def lk_align_cuda(prev_pyr, cur_pyr, pts, start, valid, scale=0.5,
+                  offset=None, half=10, iters=30, conv_eps=0.01, fb_iters=0):
+    """`lk_align` in one launch of csrc/lk.cu (inputs as `lk_align` checks
+    them, offset (N, 2) or None)."""
+    fn = _kernel()
+    levels = len(prev_pyr)
+    prev_pyr = [p.contiguous() for p in prev_pyr]
+    cur_pyr = [c.contiguous() for c in cur_pyr]
+    shapes, scales, start_scale = level_table(
+        [p.shape for p in prev_pyr], [c.shape for c in cur_pyr], half, scale)
+    pts, start = pts.contiguous(), start.contiguous()
+    valid = valid.contiguous()
+    offset = None if offset is None else offset.contiguous()
+    n = pts.shape[0]
+    dev = pts.device
+    fbuf = torch.empty((4 * n,), dtype=torch.float32, device=dev)
+    bbuf = torch.empty((2 * n,), dtype=torch.bool, device=dev)
+    xy, err, fb_d2 = fbuf[:2 * n].view(n, 2), fbuf[2 * n:3 * n], fbuf[3 * n:]
+    conv, fb_conv = bbuf[:n], bbuf[n:]
+    if n > 0:
+        rc = fn((ctypes.c_void_p * levels)(*[p.data_ptr() for p in prev_pyr]),
+                (ctypes.c_void_p * levels)(*[c.data_ptr() for c in cur_pyr]),
+                (ctypes.c_int * len(shapes))(*shapes),
+                (ctypes.c_float * levels)(*scales), levels, pts.data_ptr(),
+                start.data_ptr(),
+                None if offset is None else offset.data_ptr(),
+                valid.data_ptr(), xy.data_ptr(), conv.data_ptr(),
+                err.data_ptr(), fb_conv.data_ptr(), fb_d2.data_ptr(), n, half,
+                iters, float(conv_eps * conv_eps), fb_iters, win_rows(half),
+                slice_rows(half), scale, start_scale,
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "lk_align")
+        lk_align_cuda.launches += 1
+    if fb_iters > 0:
+        return xy, conv, err, fb_conv, fb_d2
+    return xy, conv, err
+
+
+lk_align_cuda.launches = 0
+
+
+def lk_align_plain(prev_pyr, cur_pyr, pts, start, valid, scale=0.5,
+                   offset=None, half=10, iters=30, conv_eps=0.01, fb_iters=0):
+    """The kernel's semantics in PyTorch ops: the level loop of
+    lk_pyramidal over `patch_align_plain`."""
+    levels = len(prev_pyr)
+    s0 = start if offset is None else start + offset
+    xy = s0 * (scale ** (levels - 1))
+    for lvl in range(levels - 1, -1, -1):
+        out = patch_align_plain(prev_pyr[lvl], cur_pyr[lvl],
+                                pts * (scale ** lvl), xy, valid, half, iters,
+                                conv_eps, fb_iters if lvl == 0 else 0)
+        xy = out[0] if lvl == 0 else out[0] / scale
+    return (xy,) + tuple(out[1:])
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (same semantics, vectorized over points)
 
 
 def _finish(xy, conv, err, valid, h, w, half, fb):
@@ -73,69 +208,6 @@ def _finish(xy, conv, err, valid, h, w, half, fb):
         return xy, conv, err
     fb_conv, fb_d2 = fb
     return xy, conv, err, fb_conv & conv, fb_d2
-
-
-def patch_align(prev_img, cur_img, pts, init_xy, valid, half: int = 10,
-                iters: int = 30, conv_eps: float = 0.01, fb_iters: int = 0):
-    """LK for N points: template at `pts` in prev, search in cur from
-    `init_xy`. Both images are zero-padded to the padded shape of prev, and
-    the final in-image check uses prev's shape, as in the Pallas kernel.
-    For the anchored caller (prev the atlas, cur a smaller frame) the Pallas
-    kernel pads cur by prev's padding only, so a search window past the
-    frame's right or bottom edge reads outside cur; zero padding cur to
-    prev's padded shape is what it computes when cur is that large.
-    Returns (xy (N, 2),
-    converged (N,), err (N,)) and, with fb_iters > 0, also (fb_conv (N,),
-    fb_d2 (N,))."""
-    _check(prev_img, cur_img, pts, init_xy, valid, half)
-    if prev_img.is_cuda:
-        return patch_align_cuda(prev_img, cur_img, pts, init_xy, valid, half,
-                                iters, conv_eps, fb_iters)
-    if prev_img.device.type != "cpu":
-        raise RuntimeError(f"patch_align: no kernel for {prev_img.device}")
-    return patch_align_plain(prev_img, cur_img, pts, init_xy, valid, half,
-                             iters, conv_eps, fb_iters)
-
-
-def patch_align_cuda(prev_img, cur_img, pts, init_xy, valid, half=10,
-                     iters=30, conv_eps=0.01, fb_iters=0):
-    lib = build.load("lk")
-    fn = lib.lk_align
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    h, w = prev_img.shape
-    hc, wc = cur_img.shape
-    n = pts.shape[0]
-    dev = prev_img.device
-    prev_img, cur_img = prev_img.contiguous(), cur_img.contiguous()
-    pts, init_xy, valid = (pts.contiguous(), init_xy.contiguous(),
-                           valid.contiguous())
-    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    conv = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = torch.empty((n,), dtype=torch.float32, device=dev)
-    fb_conv = torch.empty((n,), dtype=torch.bool, device=dev)
-    fb_d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    hp, wp = padded_shape(h, w, half)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if n > 0:
-        rc = fn(prev_img.data_ptr(), cur_img.data_ptr(), pts.data_ptr(),
-                init_xy.data_ptr(), valid.data_ptr(), xy.data_ptr(),
-                conv.data_ptr(), err.data_ptr(), fb_conv.data_ptr(),
-                fb_d2.data_ptr(), n, h, w, hc, wc, half, iters,
-                float(conv_eps * conv_eps), fb_iters, win_rows(half),
-                slice_rows(half), hp, wp, stream)
-        build.check(rc, "lk_align")
-        patch_align_cuda.launches += 1
-    fb = (fb_conv, fb_d2) if fb_iters > 0 else None
-    return _finish(xy, conv, err, valid, h, w, half, fb)
-
-
-patch_align_cuda.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# plain PyTorch version (same semantics, vectorized over points)
 
 
 def _bases(xy, half, hp, wp, win):
