@@ -11,14 +11,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      card, at the main path's calls on the first rendered corridor frames
      (trackingbench_slam_tpu_torch/kernel_bench.py `kernel_inputs`): FAST
      as one launch over the 3-level ORB pyramid, exact on every level; the
-     patch crop exact; LK as one launch per call (track 2 levels, stereo 2
+     ORB describe of the bootstrap keyframe's 3 levels in one launch, angles
+     within 1e-5 rad and angle bins equal on >= 99.9% of valid points,
+     descriptors bit-exact with the plain rBRIEF on the kernel's own angles
+     and with the whole plain version where the bins agree, invalid rows
+     zero; the bootstrap keyframe's anchor cells written into a 16384-slot
+     atlas, bit-exact; LK as one launch per call (track 2 levels, stereo 2
      levels + back-track, bootstrap stereo 4 levels + back-track, anchored),
      xy within 1e-3 px where both converged, converged and back-track flags
-     agreeing on >= 99% of points; both timed with CUDA events after a
+     agreeing on >= 99% of points; all timed from CUDA-graph replay after a
      warm-up;
   4. main path: StereoVO at bench.py's configuration with windowed BA off,
      40 corridor frames, frames/s after an 11-frame warm-up; every kernel's
-     launch counter must move, ATE < 0.01 m, > 500 pose inliers at the end;
+     launch counter (lk_align, fast_score_nms, orb_describe, anchor_cells)
+     must move, ATE < 0.01 m, > 500 pose inliers at the end;
   5. a `kernels` JSON line, then the card's nvidia-smi line, then the
      result line {"ok": true, "device": {...}}.
 
@@ -183,29 +189,130 @@ def check_fast(pyr, threshold, arc):
                  plain_ms=plain_ms, bound_ms=b, bound_by=by)]
 
 
-def check_patch(named_inputs):
+# ORB describe per valid point: two multiply-adds for each of the circle's
+# pixels (4 ops each), atan2 (~20) and the bin (6), 256 compares and 256
+# shift-ors to pack them.
+def orb_ops_per_point():
+    from trackingbench_slam_tpu_torch.ops import orb
+    return 4 * int(orb._circle_umax_mask().sum()) + 20 + 6 + 2 * 256
+
+
+def orb_describe_agreement(raw, blurred, xy, valid, counts):
+    """Kernel against plain on one call; returns (max wrapped angle error
+    over valid rows, share of valid rows whose angle bins agree)."""
+    import torch
+    from trackingbench_slam_tpu_torch.ops import orb
+    from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
+    args = (raw, blurred, xy, valid, counts)
+    got_a, got_d = patch_kernel.orb_describe_cuda(*args)
+    ref_a, ref_d = patch_kernel.orb_describe_plain(*args)
+    torch.cuda.synchronize()
+    d = torch.remainder(got_a - ref_a + torch.pi, 2 * torch.pi) - torch.pi
+    err = float(d[valid].abs().max())
+    same_bin = orb.angle_bins(got_a) == orb.angle_bins(ref_a)
+    bins_agree = float(same_bin[valid].float().mean())
+    own = torch.cat([orb.brief_from_patches(
+        patch_kernel.extract_patches32_plain(blur, p), a, v)
+        for blur, p, a, v in zip(blurred, xy.split(counts),
+                                 got_a.split(counts), valid.split(counts))])
+    invalid_zero = bool((got_a[~valid] == 0).all() & (got_d[~valid] == 0).all())
+    if not (err <= 1e-5 and bins_agree >= 0.999 and torch.equal(got_d, own)
+            and torch.equal(got_d[same_bin], ref_d[same_bin])
+            and invalid_zero):
+        raise AssertionError(
+            f"orb_describe differs: max |d angle| {err}, bins agree "
+            f"{bins_agree:.5f}, desc == brief on own angles "
+            f"{torch.equal(got_d, own)}, desc == plain where bins agree "
+            f"{torch.equal(got_d[same_bin], ref_d[same_bin])}, invalid rows "
+            f"zero {invalid_zero}")
+    return err, bins_agree
+
+
+def check_orb_describe(case):
+    """The bootstrap keyframe's describe in one launch for all levels; and
+    the same call with every 7th row invalid (the bootstrap has none, later
+    keyframes do)."""
     import torch
     from trackingbench_slam_tpu_torch.kernel_bench import time_ms
     from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
-    cases = []
-    for name, img, centers in named_inputs:
-        got = patch_kernel.extract_patches32_cuda(img, centers)
-        ref = patch_kernel.extract_patches32_plain(img, centers)
-        err = float((got - ref).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"patch kernel differs ({name}): {err}")
-        n = centers.shape[0]
-        ms, host_ms = time_ms(lambda: patch_kernel.extract_patches32_cuda(
-            img, centers), 50)
-        plain_ms, _ = time_ms(lambda: patch_kernel.extract_patches32_plain(
-            img, centers), 10)
-        r0, c0 = patch_kernel.patch_origins(centers, *img.shape)
-        px = covered_pixels(img.shape, [(r0, c0, patch_kernel.PATCH)])
-        b, by = bound(px * 4 + n * 8 + n * 32 * 32 * 4, 0)
-        cases.append(dict(case=name, shape=list(img.shape), n=n,
-                          max_abs_err=err, ms=ms, host_ms=host_ms,
-                          plain_ms=plain_ms, bound_ms=b, bound_by=by))
-    return cases
+    raw, blurred, xy, valid, counts = case
+    args = (raw, blurred, xy, valid, counts)
+    err, bins_agree = orb_describe_agreement(*args)
+    holes = valid & (torch.arange(xy.shape[0], device=xy.device) % 7 != 0)
+    orb_describe_agreement(raw, blurred, xy, holes, counts)
+    ms, host_ms = time_ms(lambda: patch_kernel.orb_describe_cuda(*args), 50)
+    plain_ms, _ = time_ms(lambda: patch_kernel.orb_describe_plain(*args), 10)
+    px = 0
+    for img, p, v in zip(raw, xy.split(counts), valid.split(counts)):
+        r0, c0 = patch_kernel.patch_origins(p[v], *img.shape)
+        px += covered_pixels(img.shape, [(r0, c0, patch_kernel.PATCH)])
+    n, n_valid = xy.shape[0], int(valid.sum())
+    table = patch_kernel.brief_pairs(xy.device)
+    b, by = bound(2 * 4 * px + n * (8 + 1 + 4 + 32)
+                  + table.numel() * table.element_size(),
+                  n_valid * orb_ops_per_point())
+    return [dict(case=f"{len(raw)}-level ORB describe, one launch",
+                 shapes=[list(img.shape) for img in raw], n=n,
+                 valid=n_valid, counts=list(counts), bins_agree=bins_agree,
+                 also_checked="every 7th row invalid",
+                 max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                 bound_ms=b, bound_by=by, library_ms=None)]
+
+
+def check_anchor_cells(case):
+    """The bootstrap keyframe's anchor cells into a 16384-slot atlas."""
+    import torch
+    import torch.nn.functional as F
+    from trackingbench_slam_tpu_torch.kernel_bench import time_ms
+    from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
+    img, kp_xy, slots, want = (case[k] for k in ("img", "kp_xy", "slots",
+                                                 "want"))
+    atlas, cap = case["atlas"], case["capacity"]
+    args = (img, kp_xy, slots, want, atlas, cap)
+    before = atlas.clone()
+    got = patch_kernel.anchor_cells_cuda(*args)
+    ref = patch_kernel.anchor_cells_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref) or not torch.equal(atlas, before):
+        raise AssertionError(f"anchor_cells differs: max |diff| {err}, input "
+                             f"atlas kept {torch.equal(atlas, before)}")
+    ok = want & (slots >= 0) & (slots < cap)
+    n, n_ok = kp_xy.shape[0], int(ok.sum())
+    scratch = atlas.clone()
+    ms, _ = time_ms(lambda: patch_kernel.anchor_cells_into(
+        scratch, img, kp_xy, slots, want, cap), 50)
+    call_ms, host_ms = time_ms(lambda: patch_kernel.anchor_cells_cuda(*args),
+                               50)
+    clone_ms, _ = time_ms(lambda: atlas.clone(), 50)
+    plain_ms, _ = time_ms(lambda: patch_kernel.anchor_cells_plain(*args), 10)
+    # yardstick: one PyTorch call that blends the same (n_ok, 16, 16) cells
+    c = patch_kernel.CELL
+    h, w = img.shape
+    ar = torch.arange(c, device=img.device, dtype=torch.float32) - c // 2
+    xs = (kp_xy[ok, 0][:, None, None] + ar[None, None, :]).expand(-1, c, c)
+    ys = (kp_xy[ok, 1][:, None, None] + ar[None, :, None]).expand(-1, c, c)
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
+                       -1).reshape(1, n_ok * c, c, 2)
+    image = img[None, None]
+
+    def library():
+        return F.grid_sample(image, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+    library_ms, _ = time_ms(library, 50)
+    cells = patch_kernel.bilinear_cell_patches(img, kp_xy)[ok]
+    library_diff = float((library().reshape(n_ok, c, c) - cells).abs().max())
+    x0 = torch.floor(kp_xy[ok])
+    r0, c0 = patch_kernel.patch_origins(x0 + 7.0, h, w)
+    px = covered_pixels(img.shape, [(r0, c0, c + 1)])
+    b, by = bound(4 * px + n_ok * c * c * 4 + n * (8 + 4 + 1),
+                  n_ok * (c * c * 9 + 4))
+    return [dict(case=f"bootstrap keyframe, N={n}, {n_ok} cells into a "
+                      f"{atlas.shape[0]}^2 atlas",
+                 n=n, cells=n_ok, max_abs_err=err, ms=ms, host_ms=host_ms,
+                 call_ms=call_ms, clone_ms=clone_ms, plain_ms=plain_ms,
+                 bound_ms=b, bound_by=by, library_ms=library_ms,
+                 library_max_abs_diff=library_diff)]
 
 
 def check_lk(cases):
@@ -286,9 +393,10 @@ def main():
         build.load(name)
     out_dir = os.path.join(here, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "ptxas.txt"), "w") as fh:
-        for name, rep in reports.items():
-            fh.write(f"--- {name}.cu\n{rep}\n")
+    if reports:   # empty when an earlier command of the run built them
+        with open(os.path.join(out_dir, "ptxas.txt"), "w") as fh:
+            for name, rep in reports.items():
+                fh.write(f"--- {name}.cu\n{rep}\n")
     log(f"[build] {len(build.SOURCES)} kernels for sm_90a in {build_s:.1f} s "
         f"({', '.join(build.SOURCES)})")
 
@@ -298,7 +406,7 @@ def main():
     log(f"[frames] {N_FRAMES} corridor frames {cfg.camera.width}x"
         f"{cfg.camera.height} rendered in {time.perf_counter() - t0:.1f} s")
 
-    pyr, lk_inputs, patch_inputs, budgets = kernel_inputs(
+    pyr, lk_inputs, orb_case, anchor_case, budgets = kernel_inputs(
         cfg, frames, scene, gt)
     fast_cases = check_fast(pyr, float(cfg.extractor.min_threshold),
                             cfg.extractor.fast_arc)
@@ -307,10 +415,18 @@ def main():
                     for lv in fast_cases[0]["levels"])
         + f" in one launch ({fast_cases[0]['ms']:.4f} ms, plain "
           f"{fast_cases[0]['plain_ms']:.3f} ms)")
-    patch_cases = check_patch(patch_inputs)
-    log("[check] extract_patches32 exact on "
-        + ", ".join(f"{c['case']} N={c['n']} ({c['ms']:.4f} ms, plain "
-                    f"{c['plain_ms']:.3f} ms)" for c in patch_cases))
+    orb_cases = check_orb_describe(orb_case)
+    c = orb_cases[0]
+    log(f"[check] orb_describe on {c['case']}, N={c['n']} ({c['valid']} "
+        f"valid): max |d angle| {c['max_abs_err']:.2e} rad, bins agree "
+        f"{c['bins_agree']:.5f}, descriptors exact ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms)")
+    anchor_cases = check_anchor_cells(anchor_case)
+    c = anchor_cases[0]
+    log(f"[check] anchor_cells exact on {c['case']} ({c['ms']:.4f} ms, with "
+        f"the atlas copy {c['call_ms']:.4f} ms, copy alone "
+        f"{c['clone_ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, grid_sample "
+        f"{c['library_ms']:.4f} ms)")
     lk_cases = check_lk(lk_inputs)
     log("[check] lk_align within 1e-3 px on "
         + ", ".join(f"{c['case']} N={c['n']} conv {c['converged']} agree "
@@ -320,7 +436,8 @@ def main():
 
     counters = {"lk_align": lk_kernel.lk_align_cuda,
                 "fast_score_nms": fast_kernel.fast_score_nms_cuda,
-                "extract_patches32": patch_kernel.extract_patches32_cuda}
+                "orb_describe": patch_kernel.orb_describe_cuda,
+                "anchor_cells": patch_kernel.anchor_cells_cuda}
     for fn in counters.values():
         fn.launches = 0
     vo = StereoVO(cfg)
@@ -358,7 +475,8 @@ def main():
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     ms=primary["ms"], plain_ms=primary["plain_ms"],
                     bound_ms=primary["bound_ms"],
-                    bound_by=primary["bound_by"], library_ms=None,
+                    bound_by=primary["bound_by"],
+                    library_ms=primary.get("library_ms"),
                     cases=cases)
 
     kernels = [
@@ -368,9 +486,12 @@ def main():
         entry("fast_score_nms", "trackingbench_slam_tpu_torch/csrc/fast.cu",
               "trackingbench_slam_tpu/ops/pallas/fast_kernel.py:126",
               fast_cases[0], fast_cases),
-        entry("extract_patches32", "trackingbench_slam_tpu_torch/csrc/patch.cu",
+        entry("orb_describe", "trackingbench_slam_tpu_torch/csrc/patch.cu",
               "trackingbench_slam_tpu/ops/pallas/patch_kernel.py:103",
-              patch_cases[0], patch_cases),
+              orb_cases[0], orb_cases),
+        entry("anchor_cells", "trackingbench_slam_tpu_torch/csrc/patch.cu",
+              "trackingbench_slam_tpu/ops/pallas/patch_kernel.py:103",
+              anchor_cases[0], anchor_cases),
     ]
     result = {"kernels": kernels,
               "main_path": dict(frames=N_FRAMES, timed=N_FRAMES - WARM_FRAMES,

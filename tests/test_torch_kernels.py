@@ -1,5 +1,6 @@
 """The port's plain kernel versions against the Pallas kernels run with
-interpret=True: FAST + NMS and the patch crop exactly, LK within 1e-3 px
+interpret=True: FAST + NMS and the patch crop (the building block of the
+ORB-describe and anchor-cell plain versions) exactly, LK within 1e-3 px
 with identical converged flags."""
 
 import jax.numpy as jnp
@@ -54,8 +55,8 @@ def test_patch_crop_plain_matches_pallas_exactly():
     ref = np.asarray(jax_extract_patches32(jnp.asarray(img), jnp.asarray(pts),
                                            jnp.asarray(valid),
                                            interpret=True))[:, :, :32]
-    got = patch_kernel.extract_patches32(torch.from_numpy(img),
-                                         torch.from_numpy(pts)).numpy()
+    got = patch_kernel.extract_patches32_plain(torch.from_numpy(img),
+                                               torch.from_numpy(pts)).numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -188,17 +189,24 @@ def _wrapper_calls(device):
     img = torch.zeros((64, 96), dtype=torch.float32, device=device)
     pts = torch.full((4, 2), 30.0, dtype=torch.float32, device=device)
     valid = torch.ones((4,), dtype=torch.bool, device=device)
+    slots = torch.arange(4, dtype=torch.int32, device=device)
+    atlas = torch.zeros((32, 32), dtype=torch.float32, device=device)
     return {
         "fast": (fast_kernel.fast_score_nms, fast_kernel.fast_score_nms_cuda,
                  (img, 12.0, 9)),
-        "patch": (patch_kernel.extract_patches32,
-                  patch_kernel.extract_patches32_cuda, (img, pts)),
+        "orb_describe": (patch_kernel.orb_describe,
+                         patch_kernel.orb_describe_cuda,
+                         ([img], [img], pts, valid, [4])),
+        "anchor_cells": (patch_kernel.anchor_cells,
+                         patch_kernel.anchor_cells_cuda,
+                         (img, pts, slots, valid, atlas, 4)),
         "lk": (lk_kernel.patch_align, lk_kernel.lk_align_cuda,
                (img, img, pts, pts, valid)),
     }
 
 
-@pytest.mark.parametrize("name", ["fast", "patch", "lk"])
+@pytest.mark.parametrize("name", ["fast", "orb_describe", "anchor_cells",
+                                  "lk"])
 def test_wrapper_takes_plain_version_only_for_cpu_tensors(name):
     wrapper, cuda_fn, args = _wrapper_calls("cpu")[name]
     before = cuda_fn.launches

@@ -1,9 +1,10 @@
 """Modules of the port that hold a kernel, against the JAX package: ORB
-extraction (FAST kernel + patch crop kernel), anchor-patch capture (patch
-crop kernel) and pyramidal / anchored alignment (LK kernel)."""
+extraction (FAST kernel + ORB-describe kernel), anchor-patch capture
+(anchor-cell kernel) and pyramidal / anchored alignment (LK kernel)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from trackingbench_slam_tpu.models import extractors as j_ext
@@ -22,8 +23,7 @@ from trackingbench_slam_tpu_torch.models import frame as t_frame
 from trackingbench_slam_tpu_torch.models import map as t_map
 from trackingbench_slam_tpu_torch.ops import align as t_align
 from trackingbench_slam_tpu_torch.ops import orb as t_orb
-from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import \
-    extract_patches32 as t_extract_patches32
+from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
 from trackingbench_slam_tpu_torch.utils.config import (CameraConfig,
                                                        ExtractorConfig,
                                                        PyramidConfig)
@@ -104,7 +104,7 @@ def test_extract_orb_matches_reference_tpu_path():
                                    interpret=True)
         desc_j = np.asarray(brief_from_patches(bpat_j, jnp.asarray(ang_j),
                                                jnp.asarray(valid)))
-        bpat_t = t_extract_patches32(t(blur_j), t(xy))
+        bpat_t = patch_kernel.extract_patches32_plain(t(blur_j), t(xy))
         desc_t = t_orb.brief_from_patches(bpat_t, t(ang_j), t(valid))
         np.testing.assert_array_equal(desc_t.numpy().view(np.uint32), desc_j)
         # with the port's own blur (a 7-tap convolution summed in another
@@ -124,7 +124,7 @@ def test_anchor_patch_capture_matches_pallas_blend():
     ok = np.ones(64, bool)
     ref = np.asarray(j_map.bilinear_cell_patches_pallas(
         jnp.asarray(img), jnp.asarray(kp), jnp.asarray(ok), interpret=True))
-    got = t_map.bilinear_cell_patches(t(img), t(kp)).numpy()
+    got = patch_kernel.bilinear_cell_patches(t(img), t(kp)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4)
     # written into the atlas cells of their slots
     M = 100
@@ -139,6 +139,125 @@ def test_anchor_patch_capture_matches_pallas_blend():
         cellv = atlas[row * c:(row + 1) * c, col * c:(col + 1) * c]
         np.testing.assert_allclose(cellv, ref[i] if want[i] else 0.0,
                                    atol=1e-4)
+
+
+def test_orb_describe_plain_matches_reference_tpu_path():
+    """The fused describe's plain version over three levels against the
+    reference's TPU branch: Pallas crops (interpret mode) + the moment and
+    selection-matrix math of ops/pallas/patch_kernel.py."""
+    img = np.round(make_textured_image(240, 320, seed=5, blobs=60))
+    fj, ft = _frames(img)
+    r = np.random.RandomState(7)
+    sup_xy = np.stack([r.uniform(0, 320, 80), r.uniform(0, 240, 80)],
+                      -1).astype(np.float32)
+    xy, _, valid, _, budgets = t_ext.detect_orb(
+        ft, ExtractorConfig(**EXT), PyramidConfig(num_levels=3,
+                                                  scale_factor=0.8),
+        suppress_xy=t(sup_xy), suppress_valid=t(np.ones(80, bool)))
+    assert sum(budgets) == 256 and 0 < int(valid.sum()) < 256
+    blur_j = [j_image.gaussian_blur(p) for p in fj.pyramid]
+    angle, desc = patch_kernel.orb_describe(
+        [t(p) for p in fj.pyramid], [t(b) for b in blur_j], xy, valid,
+        budgets)
+    assert angle.shape == (256,) and desc.shape == (256, 8)
+    assert desc.dtype == torch.int32
+    for lvl, (sl_xy, sl_v, sl_a, sl_d) in enumerate(zip(
+            xy.split(budgets), valid.split(budgets), angle.split(budgets),
+            desc.split(budgets))):
+        xy_j, v = jnp.asarray(sl_xy.numpy()), sl_v.numpy()
+        assert v.sum() > 10
+        patches = extract_patches32(fj.pyramid[lvl], xy_j, jnp.asarray(v),
+                                    interpret=True)
+        ang_j = np.where(v, np.asarray(ic_angle_from_patches(patches)), 0.0)
+        assert _wrap(sl_a.numpy() - ang_j).max() < 1e-5
+        # bit-exact for the same blurred image and angles
+        bpat = extract_patches32(blur_j[lvl], xy_j, jnp.asarray(v),
+                                 interpret=True)
+        desc_j = np.asarray(brief_from_patches(bpat, jnp.asarray(sl_a.numpy()),
+                                               jnp.asarray(v)))
+        np.testing.assert_array_equal(sl_d.numpy().view(np.uint32), desc_j)
+        assert (sl_a.numpy()[~v] == 0).all() and (sl_d.numpy()[~v] == 0).all()
+
+
+def test_orb_level_table_maps_rows_to_their_level():
+    shapes = [(370, 1226), (296, 981), (237, 785), (40, 50)]
+    counts = [819, 656, 525, 7]
+    table = patch_kernel.orb_level_table(shapes, counts)
+    assert table == [370, 1226, 376, 1280, 0, 296, 981, 296, 1024, 819,
+                     237, 785, 240, 896, 1475, 40, 50, 56, 384, 2000]
+    for lvl, (h, w) in enumerate(shapes):
+        assert table[5 * lvl + 2:5 * lvl + 4] == list(
+            patch_kernel.padded_shape(h, w))
+    # the kernel's lookup (the last level whose first row <= the row) gives
+    # every row the level whose rows it is in
+    firsts = table[4::5]
+    want = np.repeat(np.arange(len(counts)), counts)
+    got = [max(lvl for lvl, f in enumerate(firsts) if i >= f)
+           for i in range(sum(counts))]
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="add up"):
+        patch_kernel.orb_describe([torch.zeros(40, 50)] * 2,
+                                  [torch.zeros(40, 50)] * 2,
+                                  torch.zeros(5, 2), torch.ones(5, dtype=bool),
+                                  [2, 2])
+
+
+def test_orb_kernel_tables_match_the_plain_math():
+    """What csrc/patch.cu takes for granted about the plain version: the
+    moment mask is the disk dx^2 + dy^2 <= 225 about (15, 15), and the
+    (32, 512) int16 position table, read as one int32 per test, holds the
+    first sample in its low half and the second in its high half."""
+    mask = t_orb._circle_umax_mask() > 0
+    r, c = np.arange(31)[:, None], np.arange(31)[None, :]
+    np.testing.assert_array_equal(mask, (r - 15) ** 2 + (c - 15) ** 2 <= 225)
+    pairs = patch_kernel.brief_pairs(CPU)
+    assert pairs.shape == (32, 512) and pairs.dtype == torch.int16
+    words = pairs.numpy().view(np.int32)          # (32, 256), little-endian
+    pos = t_orb.brief_positions(CPU).numpy()
+    np.testing.assert_array_equal(words & 0xffff, pos[:, 0::2])
+    np.testing.assert_array_equal(words >> 16, pos[:, 1::2])
+    assert pos.min() >= 0 and pos.max() < 32 * 32
+
+
+def test_anchor_cells_plain_matches_pallas_at_every_border():
+    """Cells next to every border, where the crop clamp shifts the block,
+    against the Pallas blend; each written to its slot's cell of a copy of
+    the atlas, every other cell untouched."""
+    h, w = 120, 200
+    img = make_textured_image(h, w, seed=13)
+    r = np.random.RandomState(4)
+    n = 96
+    kp = np.stack([r.uniform(16, w - 16, n), r.uniform(16, h - 16, n)], -1)
+    near = r.uniform(0, 16, (4, 8))
+    kp[0:8, 0] = near[0]                 # left
+    kp[8:16, 0] = w - 1e-3 - near[1]     # right
+    kp[16:24, 1] = near[2]               # top
+    kp[24:32, 1] = h - 1e-3 - near[3]    # bottom
+    kp[32:36] = [[0.3, 0.7], [w - 0.5, 1.2], [2.5, h - 0.25],
+                 [w - 3.75, h - 7.5]]    # corners
+    kp = kp.astype(np.float32)
+    ok = np.ones(n, bool)
+    ref = np.asarray(j_map.bilinear_cell_patches_pallas(
+        jnp.asarray(img), jnp.asarray(kp), jnp.asarray(ok), interpret=True))
+    M, cap = 150, 140
+    slots = r.permutation(M)[:n].astype(np.int32)
+    slots[40:44] = [-1, cap, cap + 5, M + 20]   # outside [0, capacity)
+    want = r.uniform(size=n) > 0.15
+    atlas = torch.from_numpy(r.uniform(0, 255, (208, 208)).astype(np.float32))
+    before = atlas.clone()
+    out = patch_kernel.anchor_cells(t(img), t(kp), t(slots), t(want), atlas,
+                                    cap)
+    assert torch.equal(atlas, before)
+    g, c = 13, patch_kernel.CELL
+    expect = before.numpy().copy()
+    for i in range(n):
+        if want[i] and 0 <= slots[i] < cap:
+            row, col = divmod(int(slots[i]), g)
+            expect[row * c:(row + 1) * c, col * c:(col + 1) * c] = ref[i]
+    np.testing.assert_allclose(out.numpy(), expect, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(
+        out.numpy(), patch_kernel.anchor_cells_plain(
+            t(img), t(kp), t(slots), t(want), before, cap).numpy())
 
 
 def _shifted_pair(dx, dy, h=160, w=240, seed=21):

@@ -1,10 +1,13 @@
 """ORB extraction: FAST + grid top-k + IC angle + rBRIEF on every level.
 
 Port of trackingbench_slam_tpu/models/extractors.py (extract_orb and its
-helpers), following the reference's TPU branch: the FAST kernel
-(ops/cuda/fast_kernel.py) scores all levels in one launch, then the patch
-crop kernel (ops/cuda/patch_kernel.py) cuts 32x32 patches from each raw
-level for the IC angle and from the blurred level for BRIEF.
+helpers), following the reference's TPU branch. Two launches on the card
+for all levels: the FAST kernel (ops/cuda/fast_kernel.py) scores every
+level, then, once each level's keypoints and blurred image are known, the
+fused ORB-describe kernel (ops/cuda/patch_kernel.py `orb_describe`) takes
+each keypoint's IC angle from the raw level and its rBRIEF bits from the
+blurred level. Its plain version, `orb_describe_plain` in the same module,
+cuts the 32x32 patches and runs ops/orb.py's math on them level by level.
 """
 
 from __future__ import annotations
@@ -17,11 +20,9 @@ from trackingbench_slam_tpu_torch.models.frame import (FrameState,
                                                        with_keypoints)
 from trackingbench_slam_tpu_torch.ops import fast as fast_ops
 from trackingbench_slam_tpu_torch.ops import image as image_ops
-from trackingbench_slam_tpu_torch.ops import orb as orb_ops
 from trackingbench_slam_tpu_torch.ops.cuda.fast_kernel import \
     fast_score_nms_levels
-from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import \
-    extract_patches32
+from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import orb_describe
 from trackingbench_slam_tpu_torch.utils.config import (ExtractorConfig,
                                                        PyramidConfig)
 
@@ -57,16 +58,15 @@ def occupancy_mask(shape_hw, existing_xy: torch.Tensor,
     return 1.0 - occ
 
 
-def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
-                config: ExtractorConfig, pyr_cfg: PyramidConfig,
-                suppress_xy: torch.Tensor | None = None,
-                suppress_valid: torch.Tensor | None = None) -> FrameState:
-    """ORB over the frame's pyramid; with suppress_xy/valid it behaves like
-    AddPoints (no keypoints near live features)."""
+def detect_orb(frame: FrameState, config: ExtractorConfig,
+               pyr_cfg: PyramidConfig, suppress_xy: torch.Tensor | None = None,
+               suppress_valid: torch.Tensor | None = None):
+    """Keypoints of every level, before they are described: (xy (N, 2)
+    level coordinates, resp (N,), valid (N,), blurred levels, budgets), rows
+    in level order, budgets[l] rows for level l."""
     num_levels = len(frame.pyramid)
     budgets = level_budgets(config.num_features, num_levels,
                             pyr_cfg.scale_factor)
-    dev = frame.kp_xy.device
     # every level's score map first: one kernel launch per threshold
     scores = detect_scores(frame.pyramid, float(config.min_threshold),
                            config.fast_arc)
@@ -74,8 +74,7 @@ def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
     if config.init_threshold > config.min_threshold:
         strongs = [s > 0 for s in detect_scores(
             frame.pyramid, float(config.init_threshold), config.fast_arc)]
-    all_xy, all_resp, all_valid, all_level, all_angle, all_desc = (
-        [], [], [], [], [], [])
+    all_xy, all_resp, all_valid, blurred = [], [], [], []
     for lvl in range(num_levels):
         img = frame.pyramid[lvl]
         s = pyr_cfg.scale_factor ** lvl
@@ -88,27 +87,30 @@ def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
         xy, resp, valid = fast_ops.grid_topk(score, cell, per_cell=4,
                                              budget=budgets[lvl],
                                              strong=strong)
-        blurred = image_ops.gaussian_blur(img)
-        # the IC angle comes from the pre-blur patches, BRIEF from the
-        # blurred ones (as the reference computes them)
-        patches = extract_patches32(img, xy)
-        angle = torch.where(valid, orb_ops.ic_angle_from_patches(patches),
-                            torch.zeros_like(resp))
-        desc = orb_ops.brief_from_patches(extract_patches32(blurred, xy),
-                                          angle, valid)
-        all_xy.append(xy / s)
+        all_xy.append(xy)
         all_resp.append(resp)
         all_valid.append(valid)
-        all_level.append(torch.full((budgets[lvl],), lvl, dtype=torch.int32,
-                                    device=dev))
-        all_angle.append(angle)
-        all_desc.append(desc)
-    kp_xy = torch.cat(all_xy)
-    resp = torch.cat(all_resp)
-    valid = torch.cat(all_valid)
-    level = torch.cat(all_level)
-    angle = torch.cat(all_angle)
-    desc = torch.cat(all_desc)
+        blurred.append(image_ops.gaussian_blur(img))
+    return (torch.cat(all_xy), torch.cat(all_resp), torch.cat(all_valid),
+            blurred, budgets)
+
+
+def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
+                config: ExtractorConfig, pyr_cfg: PyramidConfig,
+                suppress_xy: torch.Tensor | None = None,
+                suppress_valid: torch.Tensor | None = None) -> FrameState:
+    """ORB over the frame's pyramid; with suppress_xy/valid it behaves like
+    AddPoints (no keypoints near live features)."""
+    xy, resp, valid, blurred, budgets = detect_orb(
+        frame, config, pyr_cfg, suppress_xy, suppress_valid)
+    dev = frame.kp_xy.device
+    # the IC angle comes from the pre-blur levels, BRIEF from the blurred
+    # ones (as the reference computes them): one launch for all levels
+    angle, desc = orb_describe(frame.pyramid, blurred, xy, valid, budgets)
+    kp_xy = torch.cat([lvl_xy / (pyr_cfg.scale_factor ** lvl)
+                       for lvl, lvl_xy in enumerate(xy.split(budgets))])
+    level = torch.cat([torch.full((b,), lvl, dtype=torch.int32, device=dev)
+                       for lvl, b in enumerate(budgets)])
     cap = frame.capacity
     n = kp_xy.shape[0]
     if n < cap:

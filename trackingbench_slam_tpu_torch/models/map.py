@@ -9,9 +9,10 @@ reference's uint32 bits.
 Updates return new tensors (the tables are cloned by the indexed writes),
 as the reference's functional updates do. The reference writes the atlas
 with a one-hot matrix product and builds keyframe-centre lookups from
-one-hot products to avoid TPU scatters and gathers; here they are indexed
-writes and gathers, which give the same values because the written slots are
-unique and each one-hot row selects a single entry.
+one-hot products to avoid TPU scatters and gathers; here the atlas cells are
+written by the anchor-cell kernel into a copy of the atlas, and the lookups
+are indexed gathers, which give the same values because the written slots
+are unique and each one-hot row selects a single entry.
 """
 
 from __future__ import annotations
@@ -22,12 +23,10 @@ import torch
 
 from trackingbench_slam_tpu_torch.geometry import se3
 from trackingbench_slam_tpu_torch.ops import packing
-from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import \
-    extract_patches32
+from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import (
+    CELL as ATLAS_CELL, anchor_cells)
 from trackingbench_slam_tpu_torch.ops.hamming import popcount32
 from trackingbench_slam_tpu_torch.ops.stats import median
-
-ATLAS_CELL = 16
 
 
 class MapState(NamedTuple):
@@ -159,39 +158,13 @@ def _add_rows(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
     return ext[:n]
 
 
-def bilinear_cell_patches(img: torch.Tensor, kp_xy: torch.Tensor):
-    """(B, 16, 16) bilinear patches centred on kp_xy: the patch crop kernel
-    cuts the integer block at floor(kp) - 8, and one (fx, fy) per point
-    blends its 17 x 17 corner (bilinear_cell_patches_pallas)."""
-    c = ATLAS_CELL
-    x0 = torch.floor(kp_xy[:, 0])
-    y0 = torch.floor(kp_xy[:, 1])
-    off = float(15 - c // 2)
-    pat = extract_patches32(img, torch.stack([x0 + off, y0 + off], -1))
-    fx = (kp_xy[:, 0] - x0)[:, None, None]
-    fy = (kp_xy[:, 1] - y0)[:, None, None]
-    block = pat[:, :c + 1, :c + 1]
-    t00, t01 = block[:, :c, :c], block[:, :c, 1:]
-    t10, t11 = block[:, 1:, :c], block[:, 1:, 1:]
-    return ((1 - fy) * ((1 - fx) * t00 + fx * t01)
-            + fy * ((1 - fx) * t10 + fx * t11))
-
-
 def write_anchor_patches(m: MapState, img: torch.Tensor, kp_xy, slots,
                          want) -> MapState:
     """Capture 16x16 patches around kp_xy and write them into the atlas
-    cells of `slots` (rows not wanted write nowhere)."""
-    c = ATLAS_CELL
-    g = m.atlas_grid
-    G2 = g * g
-    slot_ok = want & (slots >= 0) & (slots < m.capacity)
-    patches = bilinear_cell_patches(img, kp_xy)
-    cells = m.anchor_atlas.reshape(g, c, g, c).permute(0, 2, 1, 3).reshape(
-        G2, c, c)
-    cells = _set_rows(cells, torch.where(slot_ok, slots,
-                                         torch.full_like(slots, G2)), patches)
-    atlas = cells.reshape(g, g, c, c).permute(0, 2, 1, 3).reshape(g * c, g * c)
-    return m._replace(anchor_atlas=atlas)
+    cells of `slots` (rows not wanted write nowhere): the anchor-cell kernel
+    (ops/cuda/patch_kernel.py `anchor_cells`) on a copy of the atlas."""
+    return m._replace(anchor_atlas=anchor_cells(
+        img, kp_xy, slots, want, m.anchor_atlas, m.capacity))
 
 
 def free_slot_destinations(free: torch.Tensor, want: torch.Tensor):

@@ -274,7 +274,8 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
         m, p_w, f.desc, normal, min_dist, max_dist,
         kf_slot.expand(f.kp_level.shape), f.kp_level, want)
     got = want & (slots < m.capacity)
-    m = map_mod.write_anchor_patches(m, f.lk_pyr[0], f.kp_xy, slots, got)
+    with _stage("keyframe.write_anchor_patches"):
+        m = map_mod.write_anchor_patches(m, f.lk_pyr[0], f.kp_xy, slots, got)
     f = f._replace(map_idx=torch.where(got, slots, f.map_idx))
     feat_idx = torch.arange(f.capacity, dtype=torch.int32, device=dev)
     tracked = f.valid & (f.map_idx >= 0) & ~got

@@ -1,8 +1,12 @@
-"""Oriented BRIEF over 32x32 keypoint patches.
+"""Oriented BRIEF over 32x32 keypoint patches: the plain math of the fused
+ORB-describe kernel.
 
 Port of the ORB math of trackingbench_slam_tpu (ops/orb.py and the consumers
-in ops/pallas/patch_kernel.py:162-217) on top of the patch crop kernel
-(ops/cuda/patch_kernel.py). Descriptors are (N, 8) int32 words carrying the
+in ops/pallas/patch_kernel.py:162-217). On the card, IC angle, bin and the
+256 tests run inside one kernel, `orb_describe` (ops/cuda/patch_kernel.py,
+csrc/patch.cu), which reads `brief_positions` as its test table; these
+functions over (N, 32, 32) patches are its plain version
+(`orb_describe_plain`). Descriptors are (N, 8) int32 words carrying the
 same bits as the reference's uint32 words: torch's uint32 lacks shifts and
 reductions on CUDA.
 
@@ -66,7 +70,7 @@ def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=4)
-def _brief_positions(device, bins: int = ANGLE_BINS) -> torch.Tensor:
+def brief_positions(device, bins: int = ANGLE_BINS) -> torch.Tensor:
     """(bins, 512) int64 flat patch index of sample (2k + which) of pair k at
     angle bin b (the reference's _brief_selection_matrix, as indices)."""
     pat = brief_pattern().astype(np.float64)
@@ -99,7 +103,7 @@ def brief_from_patches(patches: torch.Tensor, angles: torch.Tensor,
                        valid: torch.Tensor) -> torch.Tensor:
     """(N, 32, 32) blurred patches + (N,) angles -> (N, 8) int32."""
     n = patches.shape[0]
-    pos = _brief_positions(patches.device)
+    pos = brief_positions(patches.device)
     idx = pos[angle_bins(angles)]                          # (N, 512)
     samples = torch.gather(patches.reshape(n, PATCH * PATCH), 1, idx)
     bits = samples[:, 0::2] < samples[:, 1::2]
