@@ -21,11 +21,22 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      xy within 1e-3 px where both converged, converged and back-track flags
      agreeing on >= 99% of points; all timed from CUDA-graph replay after a
      warm-up;
-  4. main path: StereoVO at bench.py's configuration with windowed BA off,
-     40 corridor frames, frames/s after an 11-frame warm-up; every kernel's
-     launch counter (lk_align, fast_score_nms, orb_describe, anchor_cells)
-     must move, ATE < 0.01 m, > 500 pose inliers at the end;
-  5. a `kernels` JSON line, then the card's nvidia-smi line, then the
+  4. main path, BA off: StereoVO at bench.py's configuration with windowed
+     BA off, 40 corridor frames, frames/s after an 11-frame warm-up; the
+     kernel launch counters (lk_align, fast_score_nms, orb_describe,
+     anchor_cells), zeroed just before, must read 57 / 9 / 9 / 9; ATE
+     < 0.01 m, > 500 pose inliers at the end;
+  5. main path, BA on: the same at bench.py's configuration itself (local
+     BA on every 2nd keyframe, 2048 landmarks): 4 BA calls, every counter
+     moving, ATE < 0.01 m, > 500 inliers; then one BA call on the final
+     state, fenced, for its time;
+  6. loop bench (bench.py's loop_closing_bench): 96 frames of a closed
+     circle, 3 LK tracking levels, BA on; a vocabulary trained on the card's
+     ORB descriptors of every 12th left image; one run without and one with
+     a LoopCloser: the closer must close >= 1 loop, its closing error must
+     be < 0.05 m and below the closer-less run's, and every counter must
+     move in the run with the closer;
+  7. a `kernels` JSON line, then the card's nvidia-smi line, then the
      result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs the package beside it: run from a checkout.
@@ -40,7 +51,13 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 N_FRAMES = 40
+LOOP_FRAMES = 96
 WARM_FRAMES = 11
+BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
+                   "anchor_cells": 9}
+# the JAX package's loop-bench accuracy record (BENCH_r05.json)
+LOOP_RECORD = dict(without_closer_m=0.7764, with_closer_m=0.0085,
+                   loops_closed=2)
 
 
 def log(msg):
@@ -363,6 +380,152 @@ def check_lk(cases):
     return out
 
 
+def sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive(vo, frames, counters):
+    """Tracks `frames` with every kernel counter zeroed just before; returns
+    (frames/s after the warm-up, launches per counter, the frames after
+    which the tracker flagged itself lost)."""
+    for fn in counters.values():
+        fn.launches = 0
+    lost = []
+    for i in range(WARM_FRAMES):
+        vo.track(*frames[i])
+    sync(vo.device)
+    t0 = time.perf_counter()
+    for i in range(WARM_FRAMES, len(frames)):
+        vo.track(*frames[i])
+        if vo.lost:
+            lost.append(i)
+    sync(vo.device)
+    fps = (len(frames) - WARM_FRAMES) / (time.perf_counter() - t0)
+    return fps, {k: fn.launches for k, fn in counters.items()}, lost
+
+
+def main_path(cfg, frames, gt, counters, device):
+    """One StereoVO over the corridor frames; returns (vo, figures)."""
+    import numpy as np
+    from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.utils import metrics
+    vo = StereoVO(cfg, device=device)
+    fps, launches, lost = drive(vo, frames, counters)
+    poses = vo.poses()
+    if poses.shape != (len(frames), 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"bad trajectory: {poses.shape}")
+    return vo, dict(frames=len(frames), timed=len(frames) - WARM_FRAMES,
+                    fps=fps, ate_m=metrics.ate_rmse(poses, gt, align=True),
+                    last_inliers=int(vo.state.num_inliers),
+                    landmarks=int(vo.state.map.valid.sum()),
+                    ba_calls=vo.ba_calls, launches=launches,
+                    lost_frames=lost)
+
+
+def ba_call_ms(vo, reps=3):
+    """Fenced host ms of local_ba_step on the run's final state."""
+    from trackingbench_slam_tpu_torch.models.local_mapping import \
+        local_ba_step
+    out = []
+    for _ in range(reps):
+        sync(vo.device)
+        t0 = time.perf_counter()
+        local_ba_step(vo.state, vo.cam, vo.cfg)
+        sync(vo.device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def train_vocabulary(cfg, frames, device):
+    """bench.py's in-domain vocabulary: ORB of every 12th left image, the
+    first 4000 valid descriptors, k = 6, L = 3, seed 0."""
+    import numpy as np
+    import torch
+    from trackingbench_slam_tpu_torch.bow import vocabulary as bow
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.models.extractors import extract_orb
+    from trackingbench_slam_tpu_torch.models.frame import make_frame
+    cam = cam_mod.CameraParams.from_config(cfg.camera, device)
+    descs = []
+    for i in range(0, len(frames), 12):
+        f = make_frame(torch.from_numpy(frames[i][0]).to(device),
+                       cfg.extractor.num_features, cfg.pyramid.num_levels,
+                       cfg.pyramid.scale_factor)
+        f = extract_orb(f, cam, cfg.extractor, cfg.pyramid)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    descs = np.concatenate(descs)[:4000]
+    return bow.train(descs, branching=6, depth=3, seed=0,
+                     device=device), len(descs)
+
+
+def time_methods(obj, names):
+    """Wraps each named method of `obj` to sum the host seconds spent in it
+    (not fenced: the run is host-bound) and count its calls; `last_args`
+    keeps each method's last arguments."""
+    spent = {n: [0.0, 0] for n in names}
+    last_args = {}
+    for name in names:
+        def timed(*args, _real=getattr(obj, name), _name=name, **kwargs):
+            last_args[_name] = (args, kwargs)
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                spent[_name][0] += time.perf_counter() - t0
+                spent[_name][1] += 1
+        setattr(obj, name, timed)
+    return spent, last_args
+
+
+def loop_bench(cfg, frames, gt, counters, device):
+    """bench.py's loop_closing_bench on the port: the same frames without
+    and with a LoopCloser."""
+    from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
+    from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.utils.corridor import closing_error
+    t0 = time.perf_counter()
+    voc, n_desc = train_vocabulary(cfg, frames, device)
+    out = dict(vocabulary=dict(descriptors=n_desc, words=voc.num_words,
+                               seconds=time.perf_counter() - t0))
+    for with_lc in (False, True):
+        vo = StereoVO(cfg, device=device)
+        if with_lc:
+            vo.loop_closer = LoopCloser(voc, vo.cam, min_score=0.015,
+                                        min_inliers=40, exclude_recent=5)
+        # where the closer's host time goes, over all 96 frames
+        spent, _ = time_methods(vo, ["_track_keyframe_with_loop",
+                                     "_finish_loop_detect", "_close_loop",
+                                     "_relocalize"] if with_lc else [])
+        if with_lc:
+            closer_spent, closer_args = time_methods(vo.loop_closer, [
+                "_issue_verify", "_finish_verify", "correct_trajectory"])
+            spent.update(closer_spent)
+        t0 = time.perf_counter()
+        fps, launches, lost = drive(vo, frames, counters)
+        wall = time.perf_counter() - t0
+        key = "with_closer" if with_lc else "without_closer"
+        out[key] = dict(
+            fps=fps, closing_err_m=closing_error(vo.poses(), gt),
+            loops_closed=len(vo.loop_events), loop_events=vo.loop_events,
+            reloc_events=vo.reloc_events, lost_frames=lost,
+            ba_calls=vo.ba_calls, launches=launches, run_s=wall,
+            host_s_in=spent)
+    # the run's last pose-graph correction again, twice, fenced: the first
+    # call in a process pays one-off costs that these do not
+    args, kwargs = closer_args.get("correct_trajectory", (None, None))
+    out["with_closer"]["correct_trajectory_again_s"] = []
+    for _ in range(2 if args else 0):
+        sync(device)
+        t0 = time.perf_counter()
+        LoopCloser.correct_trajectory(*args, **kwargs)
+        sync(device)
+        out["with_closer"]["correct_trajectory_again_s"].append(
+            time.perf_counter() - t0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -371,16 +534,14 @@ def main():
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    import numpy as np
     import trackingbench_slam_tpu_torch  # noqa: F401  (precision pins)
     from trackingbench_slam_tpu_torch.kernel_bench import kernel_inputs
     from trackingbench_slam_tpu_torch.ops.cuda import (build, fast_kernel,
                                                        lk_kernel,
                                                        patch_kernel)
-    from trackingbench_slam_tpu_torch.models.vo import StereoVO
-    from trackingbench_slam_tpu_torch.utils import metrics
     from trackingbench_slam_tpu_torch.utils.corridor import (
-        corridor_frames, main_path_config)
+        corridor_frames, loop_bench_config, loop_frames, main_path_config,
+        main_path_config_ba_off)
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -438,40 +599,83 @@ def main():
                 "fast_score_nms": fast_kernel.fast_score_nms_cuda,
                 "orb_describe": patch_kernel.orb_describe_cuda,
                 "anchor_cells": patch_kernel.anchor_cells_cuda}
-    for fn in counters.values():
-        fn.launches = 0
-    vo = StereoVO(cfg)
-    for i in range(WARM_FRAMES):
-        vo.track(*frames[i])
-    torch.cuda.synchronize()
+    dev = torch.device("cuda")
+
+    def gate(name, fig, launch_ok):
+        missing = [k for k, v in fig["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing}")
+        if not launch_ok:
+            raise AssertionError(f"{name}: launches {fig['launches']}")
+        if not fig["ate_m"] < 0.01:
+            raise AssertionError(f"{name}: ATE {fig['ate_m']} m >= 0.01 m")
+        if not fig["last_inliers"] > 500:
+            raise AssertionError(f"{name}: last-frame inliers "
+                                 f"{fig['last_inliers']} <= 500")
+
+    _, ba_off = main_path(main_path_config_ba_off(), frames, gt, counters,
+                          dev)
+    log(f"[main path, BA off] {N_FRAMES} frames, {ba_off['timed']} timed: "
+        f"{ba_off['fps']:.2f} frames/s, ATE {ba_off['ate_m']:.5f} m, "
+        f"last-frame inliers {ba_off['last_inliers']}, live landmarks "
+        f"{ba_off['landmarks']}, launches {ba_off['launches']}")
+    gate("main path, BA off", ba_off,
+         ba_off["launches"] == BA_OFF_LAUNCHES)
+
+    vo, ba_on = main_path(cfg, frames, gt, counters, dev)
+    ba_on["ba_call_ms"] = ba_call_ms(vo)
+    log(f"[main path, BA on] {N_FRAMES} frames, {ba_on['timed']} timed: "
+        f"{ba_on['fps']:.2f} frames/s, ATE {ba_on['ate_m']:.5f} m, "
+        f"last-frame inliers {ba_on['last_inliers']}, live landmarks "
+        f"{ba_on['landmarks']}, BA calls {ba_on['ba_calls']}, BA "
+        f"{', '.join(f'{t:.1f}' for t in ba_on['ba_call_ms'])} ms a call "
+        f"(fenced, on the final state), launches {ba_on['launches']}")
+    gate("main path, BA on", ba_on, ba_on["ba_calls"] == 4)
+    launches = ba_on["launches"]
+    del vo
+
+    lcfg = loop_bench_config()
     t0 = time.perf_counter()
-    for i in range(WARM_FRAMES, N_FRAMES):
-        vo.track(*frames[i])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    fps = (N_FRAMES - WARM_FRAMES) / dt
-    poses = vo.poses()
-    if poses.shape != (N_FRAMES, 4, 4) or not np.isfinite(poses).all():
-        raise AssertionError(f"bad trajectory: {poses.shape}")
-    ate = metrics.ate_rmse(poses, gt, align=True)
-    inliers = int(vo.state.num_inliers)
-    landmarks = int(vo.state.map.valid.sum())
-    log(f"[main path] {N_FRAMES} frames (BA off), {N_FRAMES - WARM_FRAMES} "
-        f"timed: {fps:.2f} frames/s, ATE {ate:.5f} m, last-frame inliers "
-        f"{inliers}, live landmarks {landmarks}, launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    lframes, lgt, _ = loop_frames(lcfg, LOOP_FRAMES)
+    loop = loop_bench(lcfg, lframes, lgt, counters, dev)
+    loop["render_s"] = time.perf_counter() - t0 - loop["vocabulary"][
+        "seconds"]
+    wo, wi = loop["without_closer"], loop["with_closer"]
+    log(f"[loop bench] {LOOP_FRAMES} frames, vocabulary of "
+        f"{loop['vocabulary']['words']} words from "
+        f"{loop['vocabulary']['descriptors']} descriptors; without the "
+        f"closer {wo['fps']:.2f} frames/s, closing error "
+        f"{wo['closing_err_m']:.4f} m; with it {wi['fps']:.2f} frames/s, "
+        f"closing error {wi['closing_err_m']:.4f} m, loops closed "
+        f"{wi['loops_closed']} at frames {wi['loop_events']}, "
+        f"relocalizations {wi['reloc_events']}, lost after frames "
+        f"{wi['lost_frames']} (without: {wo['lost_frames']}), launches "
+        f"{wi['launches']}; the run took {wo['run_s']:.1f} s without and "
+        f"{wi['run_s']:.1f} s with the closer, host s (calls) in "
+        + ", ".join(f"{k} {v[0]:.2f} ({v[1]})"
+                    for k, v in wi["host_s_in"].items())
+        + "; the last correct_trajectory again: "
+        + ", ".join(f"{t:.3f}" for t in wi["correct_trajectory_again_s"])
+        + " s "
+        f"(JAX record: {LOOP_RECORD['without_closer_m']} m without, "
+        f"{LOOP_RECORD['with_closer_m']} m with, "
+        f"{LOOP_RECORD['loops_closed']} loops)")
+    missing = [k for k, v in wi["launches"].items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    if not ate < 0.01:
-        raise AssertionError(f"ATE {ate} m >= 0.01 m")
-    if not inliers > 500:
-        raise AssertionError(f"last-frame inliers {inliers} <= 500")
+        raise AssertionError(f"loop bench: kernels not launched: {missing}")
+    if not (wi["loops_closed"] >= 1 and wi["closing_err_m"] < 0.05
+            and wi["closing_err_m"] < wo["closing_err_m"]):
+        raise AssertionError(f"loop bench failed its gates: {loop}")
+
+    paths = {"main_path_ba_off": ba_off["launches"],
+             "main_path": launches,
+             "loop_bench_without_closer": wo["launches"],
+             "loop_bench_with_closer": wi["launches"]}
 
     def entry(name, source, replaces, primary, cases):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name],
+                    launches_by_path={p: v[name] for p, v in paths.items()},
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     ms=primary["ms"], plain_ms=primary["plain_ms"],
                     bound_ms=primary["bound_ms"],
@@ -493,10 +697,9 @@ def main():
               "trackingbench_slam_tpu/ops/pallas/patch_kernel.py:103",
               anchor_cases[0], anchor_cases),
     ]
-    result = {"kernels": kernels,
-              "main_path": dict(frames=N_FRAMES, timed=N_FRAMES - WARM_FRAMES,
-                                fps=fps, ate_m=ate, last_inliers=inliers,
-                                landmarks=landmarks, orb_budgets=budgets),
+    result = {"kernels": kernels, "main_path": ba_on,
+              "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
+              "loop_bench": dict(loop, jax_record=LOOP_RECORD),
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(dict(result, device=kind, nvidia_smi=smi), fh, indent=1)

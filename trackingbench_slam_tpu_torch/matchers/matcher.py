@@ -1,9 +1,10 @@
-"""The two matchers of the stereo-VO main path.
+"""The matchers of the stereo-VO main path and the loop closer.
 
 Port of trackingbench_slam_tpu/matchers/matcher.py: `search_by_opflow`
-(pyramidal LK from the previous frame + F-RANSAC) and
+(pyramidal LK from the previous frame + F-RANSAC),
 `search_by_projection_map` (frustum projection of the map, masked Hamming
-matrix against the top-4096 frustum-visible landmarks), with `_finish`.
+matrix against the top-4096 frustum-visible landmarks) and `search_by_bow`
+(same-vocabulary-node mask), with `_finish`.
 """
 
 from __future__ import annotations
@@ -100,6 +101,21 @@ def search_by_projection_map(cam: cam_mod.CameraParams, f1: FrameState,
     if sel is not None:
         res = res._replace(idx=sel[res.idx.clamp(0, sel.shape[0] - 1)])
     return res
+
+
+def search_by_bow(f1_desc, f1_valid, f1_node, f1_angle,
+                  f2_desc, f2_valid, f2_node, f2_angle,
+                  cfg: MatcherConfig = MatcherConfig()) -> MatchResult:
+    """BoW-bucketed matching: candidates share a vocabulary node at the
+    FeatureVector level (f*_node from bow.vocabulary.transform, -1 for
+    invalid features); accept best <= TH_LOW with the ratio test and the
+    rotation histogram."""
+    same_node = (f1_node[:, None] == f2_node[None, :]) & (f1_node[:, None]
+                                                          >= 0)
+    dist = _distance_matrix(f1_desc, f2_desc)
+    dm = hamming.masked_distance(dist, f1_valid, f2_valid, same_node)
+    return _finish(dm, cfg, float(cfg.th_low), use_ratio=True,
+                   angles1=f1_angle, angles2=f2_angle)
 
 
 def search_by_opflow(f1: FrameState, f2: FrameState,

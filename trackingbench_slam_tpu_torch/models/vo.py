@@ -1,13 +1,14 @@
 """Stereo visual odometry: the track step, the keyframe step and the host
 driver.
 
-Port of trackingbench_slam_tpu/models/vo.py for the main path with
-local_ba_every = 0 and no loop closer: `track_step` (LK from a constant-
-velocity SE3 prior, F-RANSAC, 4x10 Huber LM), `keyframe_step` (anchored
-refinement, ORB re-extraction with AddPoints suppression, stereo LK with the
-fused forward-backward check, projection-map linking and fusion, culling,
-new landmarks, anchor capture, observations, keyframe insertion, landmark
-maintenance) and `StereoVO`.
+Port of trackingbench_slam_tpu/models/vo.py: `track_step` (LK from a
+constant-velocity SE3 prior, F-RANSAC, 4x10 Huber LM), `keyframe_step`
+(anchored refinement, ORB re-extraction with AddPoints suppression, stereo
+LK with the fused forward-backward check, projection-map linking and
+fusion, culling, new landmarks, anchor capture, observations, keyframe
+insertion, landmark maintenance) and `StereoVO`, which adds windowed local
+BA on its cadence (models/local_mapping.py) and, with a LoopCloser
+attached, loop closing and relocalization (models/loop_closer.py).
 
 The code runs eagerly on the device of its inputs. The reference picks the
 stereo LK pyramid depth with lax.cond on the device; here that choice is a
@@ -31,6 +32,10 @@ from trackingbench_slam_tpu_torch.models.frame import (FrameState,
                                                        is_in_frustum,
                                                        make_frame,
                                                        with_keypoints)
+from trackingbench_slam_tpu_torch.models.local_mapping import (
+    require_single_device_ba, track_keyframe_ba_step)
+from trackingbench_slam_tpu_torch.models.loop_closer import (
+    apply_loop_correction, track_keyframe_register_step)
 from trackingbench_slam_tpu_torch.models.offline import refine_trajectory
 from trackingbench_slam_tpu_torch.ops import packing
 from trackingbench_slam_tpu_torch.ops.align import (anchored_align,
@@ -38,12 +43,13 @@ from trackingbench_slam_tpu_torch.ops.align import (anchored_align,
 from trackingbench_slam_tpu_torch.ops.stats import nanmedian
 from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
+from trackingbench_slam_tpu_torch.utils.device import HostCopy, resolve_device
 
 # Named ranges over the steps and their stages, read by profile_main_path.py
 # from torch.profiler; with no profiler running a range costs the host about
 # 10 us (profile_main_path.py measures it).
 _stage = torch.profiler.record_function
-STAGE_PREFIXES = ("track", "keyframe")
+STAGE_PREFIXES = ("track", "keyframe", "ba.")
 
 
 class VOState(NamedTuple):
@@ -301,29 +307,21 @@ def track_and_keyframe_step(state: VOState, img_left, img_right,
         return keyframe_step(state, img_right, cam, cfg)
 
 
-def resolve_device(device=None) -> torch.device:
-    """The pipeline device: CUDA unless the caller names another. Raises
-    when CUDA is asked for and missing; there is no fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("StereoVO runs on CUDA by default and no CUDA "
-                           "device is available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return dev
-
-
 class StereoVO:
-    """Host driver for the stereo pipeline (keyframe cadence on a host
-    counter, tracking-loss flag one frame late). The loop closer,
-    relocalization and windowed BA are not part of this port yet: a config
-    with local_ba_every > 0 or an attached loop closer is refused."""
+    """Host loop of the stereo pipeline: keyframe cadence on a host
+    counter, windowed BA on every `local_ba_every`-th keyframe, tracking-
+    loss flag one frame late. With a LoopCloser attached
+    (`vo.loop_closer = LoopCloser(...)`), keyframes register in its BoW
+    database, detected loops are closed by a pose graph, and a lost frame
+    tries relocalization against the database, rate-limited."""
 
     min_track_inliers = 15
+    reloc_cooldown_frames = 3
+    reloc_max_fails = 2
 
     def __init__(self, cfg: PipelineConfig, device=None):
         if cfg.local_ba_every > 0:
-            raise NotImplementedError(
-                "windowed local BA is not ported: set local_ba_every=0")
+            require_single_device_ba(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam = cam_mod.CameraParams.from_config(cfg.camera, self.device)
@@ -334,14 +332,16 @@ class StereoVO:
         self.trajectory: list = []
         self.loop_closer = None
         self.lost = False
+        self.reloc_events: list = []
+        self.loop_events: list = []
+        self.ba_calls = 0
+        # trajectory index per LoopCloser ring slot
+        self._kf_traj_idx: dict = {}
         self._fid = 0
         self._kf_count = 0
         self._reloc_fails = 0
+        self._reloc_cooldown = 0
         self._pending = None
-        if self.device.type == "cuda":
-            self._inl_host = torch.zeros((), dtype=torch.int32,
-                                         pin_memory=True)
-            self._inl_event = torch.cuda.Event()
 
     def _to_device(self, img) -> torch.Tensor:
         t = torch.as_tensor(img)
@@ -352,23 +352,11 @@ class StereoVO:
     def _fetch_late(self):
         """Inlier count of the PREVIOUS frame (copied asynchronously while
         this frame computed), then start this frame's copy."""
-        prev = None
-        if self._pending is not None:
-            if self.device.type == "cuda":
-                self._inl_event.synchronize()
-                prev = int(self._inl_host)
-            else:
-                prev = int(self._pending)
-        h = self.state.num_inliers
-        if self.device.type == "cuda":
-            self._inl_host.copy_(h, non_blocking=True)
-            self._inl_event.record()
-        self._pending = h
+        prev = None if self._pending is None else int(self._pending.numpy())
+        self._pending = HostCopy(self.state.num_inliers)
         return prev
 
     def track(self, img_left, img_right=None) -> VOState:
-        if self.loop_closer is not None:
-            raise NotImplementedError("the loop closer is not ported")
         img_left = self._to_device(img_left)
         if self.state is None:
             self.state = init_state(self.cfg, img_left)
@@ -382,17 +370,35 @@ class StereoVO:
             self.trajectory.append(self.state.T_cw)
             return self.state
         self._fid += 1
+        if self.loop_closer is not None and self.loop_closer.has_pending:
+            # the loop query issued at an earlier keyframe has had frames
+            # to land
+            self._finish_loop_detect()
+        # while lost, no keyframe is inserted if relocalization can still
+        # recover (a lost frame's landmarks would poison the map); after
+        # reloc_max_fails failures re-mapping takes over
         hold_kf = (self.lost and self.loop_closer is not None
-                   and self._reloc_fails < 2
+                   and self._reloc_fails < self.reloc_max_fails
                    and self._fid > self.cfg.keyframe_every)
         is_kf = (img_right is not None
                  and self._fid % self.cfg.keyframe_every == 0
                  and not hold_kf)
         if is_kf:
             self._kf_count += 1
-            self.state = track_and_keyframe_step(
-                self.state, img_left, self._to_device(img_right), self.cam,
-                self.cfg, self.generator)
+            do_ba = (self.cfg.local_ba_every > 0
+                     and self._kf_count % self.cfg.local_ba_every == 0)
+            self.ba_calls += int(do_ba)
+            img_right = self._to_device(img_right)
+            if self.loop_closer is not None:
+                self._track_keyframe_with_loop(img_left, img_right, do_ba)
+            elif do_ba:
+                self.state = track_keyframe_ba_step(
+                    self.state, img_left, img_right, self.cam, self.cfg,
+                    self.generator)
+            else:
+                self.state = track_and_keyframe_step(
+                    self.state, img_left, img_right, self.cam, self.cfg,
+                    self.generator)
         else:
             with _stage("track_step"):
                 self.state = track_step(self.state, img_left, self.cam,
@@ -401,12 +407,110 @@ class StereoVO:
         if prev_inliers is not None:
             self.lost = (prev_inliers < self.min_track_inliers
                          and self._fid > 2)
+            if not self.lost:
+                self._reloc_fails = 0
+                self._reloc_cooldown = 0
+            elif self.loop_closer is not None:
+                # relocalization attempts at the cooldown cadence while lost
+                if self._reloc_cooldown <= 0:
+                    self._relocalize()
+                    if self.lost:
+                        self._reloc_fails += 1
+                    self._reloc_cooldown = self.reloc_cooldown_frames
+                else:
+                    self._reloc_cooldown -= 1
         self.trajectory.append(self.state.T_cw)
         return self.state
 
+    def _track_keyframe_with_loop(self, img_left, img_right, do_ba: bool):
+        """Keyframe step (+ BA) and the BoW register/query in one call; the
+        query verdict is read frames later (_finish_loop_detect)."""
+        lc = self.loop_closer
+        kf_node = len(self.trajectory)   # this keyframe's trajectory node
+        slot, used_after = lc.begin_slot(self.state.prev.capacity)
+        db_a, db_b = lc.db_tables()
+        (self.state, nodes, vec, new_a, new_b, top_idx, scores) = (
+            track_keyframe_register_step(
+                self.state, img_left, img_right, self.cam, self.cfg, lc.voc,
+                db_a, db_b, slot, used_after, do_ba, lc.exclude_recent, 3,
+                lc.sparse, self.generator))
+        f = self.state.prev
+        lc.register_precomputed(slot, used_after, nodes, vec, new_a, new_b,
+                                top_idx, scores, f.desc, f.valid, f.kp_xy,
+                                f.map_idx, self.state.map.pos, f.T_cw,
+                                kf_node=kf_node)
+        self._kf_traj_idx[slot] = kf_node
+
+    def _finish_loop_detect(self, flush: bool = False):
+        """Advance the deferred loop detection (LoopCloser.finish_detect)
+        and apply a completed correction; flush drains it (end of run)."""
+        loop, kf_node = self.loop_closer.finish_detect(flush=flush)
+        if loop is not None:
+            self._close_loop(loop, kf_node)
+
+    def _close_loop(self, loop, edge_node: int):
+        """Pose graph over the trajectory with the loop edge attached at
+        the keyframe node that measured it; the corrections go into the
+        keyframe ring, the landmarks and the current pose."""
+        cur_index = len(self.trajectory)   # this frame's (future) node
+        T_all = torch.cat([torch.stack(self.trajectory),
+                           self.state.T_cw[None]]).cpu().numpy()
+        T_opt, _ = self.loop_closer.correct_trajectory(
+            T_all, loop, cur_index=cur_index,
+            loop_frame_index=self._kf_traj_idx[loop.kf_index],
+            edge_index=edge_node, device=self.device)
+        # padded to a multiple of 64 frames with the last pose repeated
+        F = len(T_opt)
+        T_pad = np.tile(T_opt[-1][None], (-(-F // 64) * 64, 1, 1))
+        T_pad[:F] = T_opt
+        self.state = apply_loop_correction(
+            self.state, torch.as_tensor(T_pad, dtype=torch.float32,
+                                        device=self.device))
+        self.trajectory = list(torch.as_tensor(
+            T_opt[:-1], dtype=torch.float32, device=self.device).unbind(0))
+        self.loop_events.append(self._fid)
+        self.loop_closer.notify_loop_closed()
+
+    def _relocalize(self):
+        """Recover from tracking loss by BoW retrieval against the keyframe
+        database: on success the pose resets from the loop candidate and
+        the frame's features re-link to map landmarks by projection."""
+        f = extract_orb(self.state.prev, self.cam, self.cfg.extractor,
+                        self.cfg.pyramid)
+        loop = self.loop_closer.detect(f.desc, f.valid, f.kp_xy,
+                                       self.state.T_cw,
+                                       init_from_candidate=True)
+        if loop is None:
+            return
+        kf_T = self.loop_closer.entries[loop.kf_index]["T_cw"]
+        T_new = torch.as_tensor(loop.T_cur_kf @ kf_T.cpu().numpy(),
+                                dtype=torch.float32, device=self.device)
+        f = f._replace(T_cw=T_new, map_idx=_neg1(f.map_idx))
+        m = self.state.map
+        proj = matchers.search_by_projection_map(
+            self.cam, f, m, self.cfg.matcher,
+            scale_factor=self.cfg.pyramid.scale_factor,
+            num_levels=self.cfg.pyramid.num_levels, base_radius=12.0)
+        ok = proj.ok & m.valid[proj.idx.clamp(0, m.capacity - 1)]
+        f = f._replace(map_idx=torch.where(ok, proj.idx.to(torch.int32),
+                                           _neg1(f.map_idx)))
+        # the motion model is meaningless across a teleport
+        self.state = self.state._replace(
+            T_cw=T_new, prev=f,
+            T_rel=torch.eye(4, dtype=torch.float32, device=self.device),
+            flow=torch.zeros((2,), dtype=torch.float32, device=self.device))
+        self.lost = False
+        self.reloc_events.append(int(self.state.frame_id))
+
     def poses(self, refine_with_keyframes: bool = True) -> np.ndarray:
         """(F, 4, 4) world->camera trajectory; by default each frame is
-        re-expressed against its reference keyframe's final ring pose."""
+        re-expressed against its reference keyframe's final ring pose. With
+        a loop closer, pending detections are drained first."""
+        if self.loop_closer is not None:
+            for _ in range(4):
+                if not self.loop_closer.has_pending:
+                    break
+                self._finish_loop_detect(flush=True)
         T = torch.stack(self.trajectory).cpu().numpy()
         if not refine_with_keyframes or self.state is None:
             return T

@@ -1,8 +1,8 @@
 """Synthetic stereo sequences with exact ground truth (the corridor scene).
 
-A copy of the corridor renderer and trajectory of
-trackingbench_slam_tpu/utils/synthetic.py, so that this package renders the
-same frames without importing the JAX package.
+A copy of the corridor renderer and its two trajectories (forward with yaw,
+and the closed loop) of trackingbench_slam_tpu/utils/synthetic.py, so that
+this package renders the same frames without importing the JAX package.
 
 The reference's tests depend on absolute paths to KITTI/EuRoC on the author's
 machine (test/test_vo.cpp:114-122, 619-628) plus a bundled two-frame stereo
@@ -191,6 +191,29 @@ def forward_yaw_trajectory(n: int, step: float = 0.12,
         R_wc = Rotation.from_euler("yx", [yaw, pitch]).as_matrix()
         # advance along the current viewing direction (z axis of camera)
         c = c + R_wc[:, 2] * step
+        T_wc = np.eye(4)
+        T_wc[:3, :3] = R_wc
+        T_wc[:3, 3] = c
+        poses.append(np.linalg.inv(T_wc))
+    return np.stack(poses)
+
+
+def loop_trajectory(n: int, radius: float = 1.2, height_amp: float = 0.02,
+                    ease: float = 0.75):
+    """A closed circular path in the x-z plane with tangent-following yaw:
+    the camera returns to, and re-observes, its starting view. `ease`
+    reparametrizes the circle with the speed profile
+    s(u) = u - (ease / 2pi) sin(2pi u): the turn rate ramps from (1 - ease)
+    of the mean to (1 + ease) at mid-loop and back."""
+    from scipy.spatial.transform import Rotation
+    poses = []
+    for i in range(n):
+        u = i / n
+        s = u - ease / (2 * np.pi) * np.sin(2 * np.pi * u)
+        th = 2 * np.pi * s
+        c = np.array([radius * np.sin(th), height_amp * np.sin(3 * th),
+                      radius * (1 - np.cos(th)) + 2.0])
+        R_wc = Rotation.from_euler("y", th).as_matrix()
         T_wc = np.eye(4)
         T_wc[:3, :3] = R_wc
         T_wc[:3, 3] = c
