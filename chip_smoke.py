@@ -36,28 +36,65 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      a LoopCloser: the closer must close >= 1 loop, its closing error must
      be < 0.05 m and below the closer-less run's, and every counter must
      move in the run with the closer;
-  7. a `kernels` JSON line, then the card's nvidia-smi line, then the
-     result line {"ok": true, "device": {...}}.
+  7. direct: DirectVO at bench.py's camera and features on the direct
+     pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
+     ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
+     sparse_image_align and features_align on the run's last call, fenced
+     host ms and profiled device ms;
+  8. indirect: IndirectVO at the EuRoC operating point (752x480), 12 stereo
+     corridor frames, each of the five match strategies (BoW on a
+     vocabulary trained on the card's ORB of every 3rd left image): ATE
+     < 0.04 m, > 30 last-frame inliers, all four kernels launched;
+  9. mono: MonoVO at the main path's camera, features and map, 28 lateral
+     frames: bootstrapped, scale-aligned ATE after it < 0.06 m, > 150 live
+     landmarks, everything finite, LK, FAST and ORB describe launched;
+     then the direct tracker's seed LK call (half 6, 2 levels, prior) and
+     the mono keyframe's back-track call, recorded in phases 7 and 9,
+     against the plain LK as in phase 3.
+  Beside phases 7-9 stand the JAX package's figures on its own gates
+  (`reference_figures.py`, run once on a CPU; JAX_GATE_FIGURES below);
+  10. a `kernels` JSON line (launches on every path), the script's seconds,
+     then the card's nvidia-smi line, then the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs the package beside it: run from a checkout.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 N_FRAMES = 40
 LOOP_FRAMES = 96
 WARM_FRAMES = 11
+WARM_DIRECT = 4
+WARM_MONO = 4
 BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
                    "anchor_cells": 9}
 # the JAX package's loop-bench accuracy record (BENCH_r05.json)
 LOOP_RECORD = dict(without_closer_m=0.7764, with_closer_m=0.0085,
                    loops_closed=2)
+# the JAX package on its own gates' configurations, on a CPU
+# (`JAX_PLATFORMS=cpu python3 reference_figures.py`): direct and mono at
+# 512x384, indirect per strategy on a 320x240 textured plane
+JAX_GATE_FIGURES = {
+    "direct": dict(ate_m=0.0013416535037562949, num_tracked=546,
+                   num_promoted=199),
+    "indirect": {
+        "nn": dict(ate_m=0.01750908377838597, last_inliers=75),
+        "bf": dict(ate_m=0.017378065740594355, last_inliers=75),
+        "window": dict(ate_m=0.014214268215713909, last_inliers=411),
+        "projection": dict(ate_m=0.014660286270817018, last_inliers=417),
+        "bow": dict(ate_m=0.014733983127385324, last_inliers=369)},
+    "mono": dict(ate_m=0.0058274552235271755, landmarks=850, init_frame=9),
+}
 
 
 def log(msg):
@@ -386,29 +423,39 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def drive(vo, frames, counters):
-    """Tracks `frames` with every kernel counter zeroed just before; returns
-    (frames/s after the warm-up, launches per counter, the frames after
-    which the tracker flagged itself lost)."""
+def run_counted(counters, device, frames, track, warm):
+    """Tracks `frames` (`track(i, frame)` each) with every kernel counter
+    zeroed just before; returns (frames/s over the frames after `warm`,
+    launches per counter)."""
     for fn in counters.values():
         fn.launches = 0
-    lost = []
-    for i in range(WARM_FRAMES):
-        vo.track(*frames[i])
-    sync(vo.device)
+    for i in range(warm):
+        track(i, frames[i])
+    sync(device)
     t0 = time.perf_counter()
-    for i in range(WARM_FRAMES, len(frames)):
-        vo.track(*frames[i])
-        if vo.lost:
+    for i in range(warm, len(frames)):
+        track(i, frames[i])
+    sync(device)
+    fps = (len(frames) - warm) / (time.perf_counter() - t0)
+    return fps, {k: fn.launches for k, fn in counters.items()}
+
+
+def drive(vo, frames, counters):
+    """A StereoVO over `frames` (run_counted after an 11-frame warm-up);
+    returns (frames/s, launches per counter, the timed frames after which
+    the tracker flagged itself lost)."""
+    lost = []
+
+    def track(i, frame):
+        vo.track(*frame)
+        if vo.lost and i >= WARM_FRAMES:
             lost.append(i)
-    sync(vo.device)
-    fps = (len(frames) - WARM_FRAMES) / (time.perf_counter() - t0)
-    return fps, {k: fn.launches for k, fn in counters.items()}, lost
+    return (*run_counted(counters, vo.device, frames, track, WARM_FRAMES),
+            lost)
 
 
 def main_path(cfg, frames, gt, counters, device):
     """One StereoVO over the corridor frames; returns (vo, figures)."""
-    import numpy as np
     from trackingbench_slam_tpu_torch.models.vo import StereoVO
     from trackingbench_slam_tpu_torch.utils import metrics
     vo = StereoVO(cfg, device=device)
@@ -438,10 +485,9 @@ def ba_call_ms(vo, reps=3):
     return out
 
 
-def train_vocabulary(cfg, frames, device):
-    """bench.py's in-domain vocabulary: ORB of every 12th left image, the
-    first 4000 valid descriptors, k = 6, L = 3, seed 0."""
-    import numpy as np
+def train_vocabulary(cfg, frames, device, every=12):
+    """bench.py's in-domain vocabulary: ORB of every `every`-th left image,
+    the first 4000 valid descriptors, k = 6, L = 3, seed 0."""
     import torch
     from trackingbench_slam_tpu_torch.bow import vocabulary as bow
     from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
@@ -449,7 +495,7 @@ def train_vocabulary(cfg, frames, device):
     from trackingbench_slam_tpu_torch.models.frame import make_frame
     cam = cam_mod.CameraParams.from_config(cfg.camera, device)
     descs = []
-    for i in range(0, len(frames), 12):
+    for i in range(0, len(frames), every):
         f = make_frame(torch.from_numpy(frames[i][0]).to(device),
                        cfg.extractor.num_features, cfg.pyramid.num_levels,
                        cfg.pyramid.scale_factor)
@@ -524,6 +570,172 @@ def loop_bench(cfg, frames, gt, counters, device):
         out["with_closer"]["correct_trajectory_again_s"].append(
             time.perf_counter() - t0)
     return out
+
+
+@contextlib.contextmanager
+def watched(module, name, pick, last=False):
+    """While inside, calls of module.<name> go through unchanged; the
+    arguments (args, kwargs) of the first call that `pick` accepts (with
+    `last`, of the last one) are kept in the yielded list."""
+    real = getattr(module, name)
+    kept = []
+
+    def call(*args, **kwargs):
+        if pick(args, kwargs) and (last or not kept):
+            kept[:] = [(args, kwargs)]
+        return real(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, real)
+
+
+def lk_case(name, call):
+    """An `lk_pyramidal` call's arguments as a check_lk case (the
+    `lk_align` call it makes)."""
+    (prev_pyr, cur_pyr, pts, valid, scale), kw = call
+    levels = min(kw.get("num_levels", 3), len(prev_pyr))
+    return (name, "lk_pyramidal", tuple(prev_pyr[:levels]),
+            tuple(cur_pyr[:levels]), pts, pts, valid,
+            dict(scale=scale, offset=kw.get("init_offset"),
+                 half=kw.get("half", 10), iters=kw.get("iters", 30),
+                 conv_eps=0.01, fb_iters=kw.get("fb_iters", 0)))
+
+
+def gate_launches(name, launches, expected):
+    missing = [k for k in expected if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+
+
+def profile_calls(fn, device, reps=3):
+    """fn()'s fenced host ms, device ms (the kernels it launched, under
+    torch.profiler), CUDA kernels, and the five kernels with the most
+    device time (name, ms), each per call."""
+    from trackingbench_slam_tpu_torch.profile_main_path import (
+        device_events, profiled)
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    avgs, _ = profiled(lambda: [fn() for _ in range(reps)])
+    device_ev = device_events(avgs)
+    top = sorted(device_ev, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(host_ms=host_ms,
+                device_ms=sum(e.self_device_time_total
+                              for e in device_ev) / 1e3 / reps,
+                cuda_kernels=sum(e.count for e in device_ev) / reps,
+                top_device_ms=[[e.key[:100], e.self_device_time_total / 1e3
+                                / reps] for e in top])
+
+
+def direct_phase(counters, device):
+    """DirectVO at bench.py's camera on the reference's direct pyramid: 24
+    corridor frames, stereo on the first only, so every later landmark is a
+    promoted depth-filter seed."""
+    from trackingbench_slam_tpu_torch.matchers import direct
+    from trackingbench_slam_tpu_torch.models import direct_vo
+    from trackingbench_slam_tpu_torch.utils import metrics
+    from trackingbench_slam_tpu_torch.utils.corridor import (direct_config,
+                                                             direct_frames)
+    cfg = direct_config()
+    t0 = time.perf_counter()
+    frames, gt = direct_frames(cfg)
+    render_s = time.perf_counter() - t0
+    vo = direct_vo.DirectVO(cfg, device=device)
+    with watched(direct_vo, "lk_pyramidal",
+                 lambda a, k: k.get("half") == 6) as seed, \
+            watched(direct, "sparse_image_align", lambda a, k: True,
+                    last=True) as sia, \
+            watched(direct, "features_align", lambda a, k: True,
+                    last=True) as fa:
+        fps, launches = run_counted(counters, device, frames,
+                                    lambda i, f: vo.track(*f), WARM_DIRECT)
+    poses = vo.poses()
+    fig = dict(frames=len(frames), timed=len(frames) - WARM_DIRECT, fps=fps,
+               render_s=render_s,
+               ate_m=metrics.ate_rmse(poses, gt, align=True),
+               num_tracked=vo.num_tracked, num_promoted=vo.num_promoted,
+               finite=bool(np.isfinite(poses).all()), launches=launches)
+    # the two direct stages on the run's last call, fenced and profiled
+    for key, (module_fn, call) in {"sparse_image_align": (
+            direct.sparse_image_align, sia), "features_align": (
+            direct.features_align, fa)}.items():
+        args, kwargs = call[0]
+        fig[key] = profile_calls(lambda: module_fn(*args, **kwargs), device)
+    return fig, lk_case("direct seed, half 6, 2 levels, prior", seed[0])
+
+
+def indirect_phase(counters, device):
+    """IndirectVO at the EuRoC operating point (752x480, 2000 features, 5
+    levels x0.8), 12 stereo corridor frames, each of the five strategies;
+    BoW on a vocabulary trained on the card's ORB of every 3rd left
+    image."""
+    from trackingbench_slam_tpu_torch.models.indirect_vo import (
+        IndirectVO, MatchStrategy)
+    from trackingbench_slam_tpu_torch.utils import metrics
+    from trackingbench_slam_tpu_torch.utils.config import euroc_stereo_config
+    from trackingbench_slam_tpu_torch.utils.corridor import indirect_frames
+    cfg = euroc_stereo_config()
+    t0 = time.perf_counter()
+    frames, gt = indirect_frames(cfg)
+    out = dict(render_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    voc, n_desc = train_vocabulary(cfg, frames, device, every=3)
+    out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
+                             seconds=time.perf_counter() - t0)
+    for s in MatchStrategy:
+        vo = IndirectVO(cfg, s, voc=voc if s is MatchStrategy.BOW else None,
+                        device=device)
+        fps, launches = run_counted(counters, device, frames,
+                                    lambda i, f: vo.track(*f), 1)
+        poses = vo.poses()
+        out[s.value] = dict(
+            frames=len(frames), timed=len(frames) - 1, fps=fps,
+            ate_m=metrics.ate_rmse(poses, gt, align=True),
+            last_inliers=int(vo.state.num_inliers),
+            finite=bool(np.isfinite(poses).all()), launches=launches)
+    return out
+
+
+def mono_phase(counters, device):
+    """MonoVO at the main path's camera, pyramid, features and map: 28
+    lateral corridor frames, left images only."""
+    from trackingbench_slam_tpu_torch.models import mono_vo
+    from trackingbench_slam_tpu_torch.utils import metrics
+    from trackingbench_slam_tpu_torch.utils.corridor import (mono_config,
+                                                             mono_frames)
+    cfg = mono_config()
+    t0 = time.perf_counter()
+    frames, gt = mono_frames(cfg)
+    render_s = time.perf_counter() - t0
+    vo = mono_vo.MonoVO(cfg, min_parallax_px=20.0, device=device)
+    with watched(mono_vo, "lk_pyramidal", lambda a, k: k.get(
+            "num_levels") == 1 and k.get("iters") == 10) as back:
+        fps, launches = run_counted(counters, device, frames,
+                                    lambda i, f: vo.track(f), WARM_MONO)
+    poses = vo.poses()
+    fig = dict(frames=len(frames), timed=len(frames) - WARM_MONO, fps=fps,
+               render_s=render_s, initialized=vo.initialized,
+               finite=bool(np.isfinite(poses).all()), launches=launches,
+               keyframes=vo.kf_count,
+               ba_calls=vo.kf_count // cfg.local_ba_every)
+    if vo.initialized:
+        m = vo.state.map
+        k0 = next(i for i in range(1, len(frames))
+                  if not np.allclose(poses[i], np.eye(4)))
+        fig.update(init_frame=k0, ate_m=metrics.ate_rmse(
+            poses[k0:], gt[k0:], align=True, with_scale=True),
+            landmarks=int(m.valid.sum()),
+            landmarks_finite=bool(m.pos[m.valid].isfinite().all()))
+    case = (lk_case("mono keyframe back-track, 1 level, 10 iterations",
+                    back[0]) if back else None)
+    return fig, case
 
 
 def main():
@@ -667,10 +879,77 @@ def main():
             and wi["closing_err_m"] < wo["closing_err_m"]):
         raise AssertionError(f"loop bench failed its gates: {loop}")
 
+    direct, seed_case = direct_phase(counters, dev)
+    jd = JAX_GATE_FIGURES["direct"]
+    log(f"[direct] {direct['frames']} frames 1226x370, stereo on the first "
+        f"only, {direct['timed']} timed: {direct['fps']:.2f} frames/s, ATE "
+        f"{direct['ate_m']:.5f} m, tracked {direct['num_tracked']}, promoted "
+        f"{direct['num_promoted']}, launches {direct['launches']}; "
+        f"sparse_image_align {direct['sparse_image_align']['host_ms']:.1f} ms"
+        f" host / {direct['sparse_image_align']['device_ms']:.3f} ms device "
+        f"in {direct['sparse_image_align']['cuda_kernels']:.0f} kernels, "
+        f"features_align {direct['features_align']['host_ms']:.1f} / "
+        f"{direct['features_align']['device_ms']:.3f} ms in "
+        f"{direct['features_align']['cuda_kernels']:.0f} kernels a call "
+        f"(JAX at its gate's 512x384, CPU: ATE {jd['ate_m']:.5f} m, tracked "
+        f"{jd['num_tracked']}, promoted {jd['num_promoted']})")
+    gate_launches("direct", direct["launches"],
+                  ("lk_align", "fast_score_nms"))
+    if not (direct["ate_m"] < 0.05 and direct["num_tracked"] > 40
+            and direct["num_promoted"] > 50 and direct["finite"]):
+        raise AssertionError(f"direct failed its gates: {direct}")
+
+    indirect = indirect_phase(counters, dev)
+    for s, fig in indirect.items():
+        if s in ("render_s", "vocabulary"):
+            continue
+        ji = JAX_GATE_FIGURES["indirect"][s]
+        log(f"[indirect {s}] {fig['frames']} stereo frames 752x480, "
+            f"{fig['timed']} timed: {fig['fps']:.2f} frames/s, ATE "
+            f"{fig['ate_m']:.5f} m, last-frame inliers {fig['last_inliers']},"
+            f" launches {fig['launches']} (JAX at its gate's 320x240 plane, "
+            f"CPU: ATE {ji['ate_m']:.5f} m, inliers {ji['last_inliers']})")
+        gate_launches(f"indirect {s}", fig["launches"], tuple(counters))
+        if not (fig["ate_m"] < 0.04 and fig["last_inliers"] > 30
+                and fig["finite"]):
+            raise AssertionError(f"indirect {s} failed its gates: {fig}")
+
+    mono, back_case = mono_phase(counters, dev)
+    jm = JAX_GATE_FIGURES["mono"]
+    log(f"[mono] {mono['frames']} frames 1226x370, {mono['timed']} timed: "
+        f"{mono['fps']:.2f} frames/s, initialized {mono['initialized']} at "
+        f"frame {mono.get('init_frame')}, scale-aligned ATE "
+        f"{mono.get('ate_m', float('nan')):.5f} m, live landmarks "
+        f"{mono.get('landmarks')}, keyframes {mono['keyframes']}, BA calls "
+        f"{mono['ba_calls']}, launches {mono['launches']} (JAX at its gate's "
+        f"512x384, CPU: ATE {jm['ate_m']:.5f} m, landmarks "
+        f"{jm['landmarks']})")
+    gate_launches("mono", mono["launches"], ("lk_align", "fast_score_nms",
+                                             "orb_describe"))
+    if not mono["initialized"]:
+        raise AssertionError(f"mono never bootstrapped: {mono}")
+    if not (mono["ate_m"] < 0.06
+            and mono["landmarks"] > 150 and mono["finite"]
+            and mono["landmarks_finite"]):
+        raise AssertionError(f"mono failed its gates: {mono}")
+
+    new_lk = check_lk([seed_case, back_case])
+    lk_cases += new_lk
+    log("[check] lk_align within 1e-3 px on "
+        + ", ".join(f"{c['case']} N={c['n']} conv {c['converged']} agree "
+                    f"{c['flags_agree']:.4f} err {c['max_abs_err']:.2e} "
+                    f"({c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, bound "
+                    f"{c['bound_ms']:.5f} ms)" for c in new_lk))
+
     paths = {"main_path_ba_off": ba_off["launches"],
              "main_path": launches,
              "loop_bench_without_closer": wo["launches"],
-             "loop_bench_with_closer": wi["launches"]}
+             "loop_bench_with_closer": wi["launches"],
+             "direct": direct["launches"],
+             **{f"indirect_{s}": fig["launches"]
+                for s, fig in indirect.items()
+                if s not in ("render_s", "vocabulary")},
+             "mono": mono["launches"]}
 
     def entry(name, source, replaces, primary, cases):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -700,7 +979,10 @@ def main():
     result = {"kernels": kernels, "main_path": ba_on,
               "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
               "loop_bench": dict(loop, jax_record=LOOP_RECORD),
+              "direct": direct, "indirect": indirect, "mono": mono,
+              "jax_gate_figures": JAX_GATE_FIGURES,
               "seconds": time.perf_counter() - t_start}
+    log(f"[time] the whole script took {result['seconds']:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(dict(result, device=kind, nvidia_smi=smi), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

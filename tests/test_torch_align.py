@@ -5,6 +5,10 @@ use_pallas is true), the FAST score maps of a pyramid against the Pallas
 kernel level by level, and the argument tables the CUDA wrappers pack for
 their one launch per pyramid."""
 
+import contextlib
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +29,50 @@ def _shifted_pair(dx, dy, h=160, w=240, seed=21):
     return img, np.asarray(j_image.bilinear_sample(
         jnp.asarray(img), jnp.asarray(np.stack([xs - dx, ys - dy], -1),
                                       jnp.float32)))
+
+
+@contextlib.contextmanager
+def reference_tpu_semantics():
+    """While inside, the JAX package takes its TPU branches on the CPU: the
+    modules that branch on jax.default_backend() read "tpu", and the Pallas
+    kernels they then call run in interpret mode. The port follows those
+    branches (LK, FAST, the ORB crops and the anchor cells), so pipelines of
+    the two packages can be held to each other closely. Nothing of the JAX
+    package is edited: module attributes are swapped and restored, and the
+    jit caches cleared on the way in and out."""
+    from trackingbench_slam_tpu.models import extractors
+    from trackingbench_slam_tpu.models import map as j_map
+    from trackingbench_slam_tpu.ops import align as j_align
+    from trackingbench_slam_tpu.ops.pallas import lk_kernel as j_lk
+
+    class OnTPU:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        @staticmethod
+        def default_backend():
+            return "tpu"
+
+    def interpret(module, name):
+        return (module, name,
+                functools.partial(getattr(module, name), interpret=True))
+
+    swaps = [(extractors, "jax", OnTPU()), (j_align, "jax", OnTPU()),
+             (j_map, "jax", OnTPU()),
+             interpret(extractors, "fast_score_map_pallas"),
+             interpret(extractors, "extract_patches32"),
+             interpret(j_lk, "patch_align_pallas"),
+             interpret(j_map, "bilinear_cell_patches_pallas")]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    jax.clear_caches()
+    for m, name, value in swaps:
+        setattr(m, name, value)
+    try:
+        yield
+    finally:
+        for m, name, value in saved:
+            setattr(m, name, value)
+        jax.clear_caches()
 
 
 def _reference_tpu_branch(prev_pyr, cur_pyr, pts, valid, scale, half, iters,
@@ -51,8 +99,11 @@ def _reference_tpu_branch(prev_pyr, cur_pyr, pts, valid, scale, half, iters,
     return xy, conv, err, fb_conv, fb_d2
 
 
-@pytest.mark.parametrize("case", ["3 levels", "2 levels, prior, fb"])
+@pytest.mark.parametrize("case", ["3 levels", "2 levels, prior, fb",
+                                  "2 levels, prior, half 6"])
 def test_lk_pyramidal_matches_reference_tpu_path(case):
+    """The third case is the direct tracker's seed call: half 6, 20
+    iterations, 2 levels from a per-point prior."""
     img1, img2 = _shifted_pair(3.4, -1.7)
     r = np.random.RandomState(4)
     n = 40
@@ -62,22 +113,23 @@ def test_lk_pyramidal_matches_reference_tpu_path(case):
     valid[7] = False
     pj = j_image.build_pyramid(jnp.asarray(img1), 4, 0.5)
     cj = j_image.build_pyramid(jnp.asarray(img2), 4, 0.5)
+    half, iters = (6, 20) if "half 6" in case else (10, 30)
     if case == "3 levels":
         kw = dict(num_levels=3)
         offset = None
     else:
         offset = (np.float32([3.0, -1.5])
                   + r.uniform(-0.5, 0.5, (n, 2))).astype(np.float32)
-        kw = dict(num_levels=2, fb_iters=10)
+        kw = dict(num_levels=2, fb_iters=10 if "fb" in case else 0)
     ref = _reference_tpu_branch(
-        tuple(pj), tuple(cj), jnp.asarray(pts), jnp.asarray(valid), 0.5, 10,
-        30, init_offset=None if offset is None else jnp.asarray(offset),
-        **kw)
+        tuple(pj), tuple(cj), jnp.asarray(pts), jnp.asarray(valid), 0.5,
+        half, iters,
+        init_offset=None if offset is None else jnp.asarray(offset), **kw)
     got = t_align.lk_pyramidal(
         tuple(torch.from_numpy(np.array(p)) for p in pj),
         tuple(torch.from_numpy(np.array(c)) for c in cj),
-        torch.from_numpy(pts), torch.from_numpy(valid), 0.5, half=10,
-        iters=30, init_offset=None if offset is None
+        torch.from_numpy(pts), torch.from_numpy(valid), 0.5, half=half,
+        iters=iters, init_offset=None if offset is None
         else torch.from_numpy(offset), **kw)
     conv = np.asarray(ref[1])
     assert conv.sum() > 0.7 * n and not conv[7]
@@ -86,7 +138,7 @@ def test_lk_pyramidal_matches_reference_tpu_path(case):
                                atol=1e-3)
     np.testing.assert_allclose(got.error.numpy()[conv],
                                np.asarray(ref[2])[conv], atol=1e-3)
-    if "fb_iters" in kw:
+    if kw.get("fb_iters", 0) > 0:
         fb = np.asarray(ref[3])
         assert fb.sum() > 0.7 * n
         np.testing.assert_array_equal(got.fb_conv.numpy(), fb)

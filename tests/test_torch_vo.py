@@ -200,14 +200,24 @@ def test_port_imports_no_jax():
 
 
 def test_stereo_vo_needs_cuda_unless_asked_for_cpu():
+    """Every tracker of the port: StereoVO, DirectVO, IndirectVO and
+    MonoVO."""
+    from trackingbench_slam_tpu_torch.models.direct_vo import DirectVO
+    from trackingbench_slam_tpu_torch.models.indirect_vo import IndirectVO
+    from trackingbench_slam_tpu_torch.models.mono_vo import MonoVO
     cfg = small_config()
-    with pytest.raises(NotImplementedError, match="mesh.lm"):
-        t_vo.StereoVO(PipelineConfig(camera=cfg.camera, local_ba_every=2,
-                                     mesh=MeshConfig(lm=2)), device="cpu")
-    vo = t_vo.StereoVO(cfg, device="cpu")
-    assert vo.device.type == "cpu" and vo.cam.fx.device.type == "cpu"
+    lm2 = PipelineConfig(camera=cfg.camera, local_ba_every=2,
+                         mesh=MeshConfig(lm=2))
+    for tracker in (t_vo.StereoVO, MonoVO):
+        with pytest.raises(NotImplementedError, match="mesh.lm"):
+            tracker(lm2, device="cpu")
+    trackers = (t_vo.StereoVO, DirectVO, IndirectVO, MonoVO)
+    for tracker in trackers:
+        vo = tracker(cfg, device="cpu")
+        assert vo.device.type == "cpu" and vo.cam.fx.device.type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
-    for c in (cfg, small_config(local_ba_every=2)):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            t_vo.StereoVO(c)
+    for tracker in trackers:
+        for c in (cfg, small_config(local_ba_every=2)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tracker(c)

@@ -1,10 +1,14 @@
-"""The matchers of the stereo-VO main path and the loop closer.
+"""The interchangeable matching strategies.
 
 Port of trackingbench_slam_tpu/matchers/matcher.py: `search_by_opflow`
-(pyramidal LK from the previous frame + F-RANSAC),
+(pyramidal LK from the previous frame + F-RANSAC), the four descriptor
+matchers of the indirect tracker (`search_by_nn`, `search_by_bf`,
+`search_by_window`, `search_by_projection_frame`),
 `search_by_projection_map` (frustum projection of the map, masked Hamming
 matrix against the top-4096 frustum-visible landmarks) and `search_by_bow`
-(same-vocabulary-node mask), with `_finish`.
+(same-vocabulary-node mask), with `_finish`. Every descriptor matcher is a
+masked Hamming matrix with its own candidate mask and accept rule; argmin
+ties go to the lowest index, as jnp.argmin breaks them.
 """
 
 from __future__ import annotations
@@ -52,6 +56,81 @@ def _finish(dist_masked, cfg: MatcherConfig, accept_th: float,
         ok = hamming.resolve_duplicate_targets(idx, best, ok,
                                                dist_masked.shape[1])
     return MatchResult(idx=idx, dist=best, ok=ok)
+
+
+def _level_band_mask(lvl1: torch.Tensor, lvl2: torch.Tensor,
+                     band: int) -> torch.Tensor:
+    return torch.abs(lvl1[:, None] - lvl2[None, :]) <= band
+
+
+def _global_min_threshold(dm: torch.Tensor, cfg: MatcherConfig):
+    """The NN/BF accept threshold min(ratio * max(global min, 1), cap)."""
+    global_min = torch.clamp(dm.min(), min=1.0)
+    return torch.clamp(cfg.min_dist_ratio * global_min, max=cfg.min_dist_cap)
+
+
+def search_by_nn(f1_desc, f1_valid, f2_desc, f2_valid,
+                 cfg: MatcherConfig = MatcherConfig()) -> MatchResult:
+    """Exact nearest neighbours with the accept rule dist < min(ratio *
+    max(global min, 1), cap), one-to-one."""
+    dm = hamming.masked_distance(_distance_matrix(f1_desc, f2_desc),
+                                 f1_valid, f2_valid)
+    idx, best, _ = hamming.best_two(dm)
+    ok = best < _global_min_threshold(dm, cfg)
+    ok = hamming.resolve_duplicate_targets(idx, best, ok, dm.shape[1])
+    return MatchResult(idx=idx, dist=best, ok=ok)
+
+
+def search_by_bf(f1_desc, f1_valid, f2_desc, f2_valid,
+                 cfg: MatcherConfig = MatcherConfig()) -> MatchResult:
+    """Brute force with cross-check and the NN accept rule."""
+    dm = hamming.masked_distance(_distance_matrix(f1_desc, f2_desc),
+                                 f1_valid, f2_valid)
+    idx, best, mutual = hamming.mutual_best(dm)
+    ok = mutual & (best < _global_min_threshold(dm, cfg))
+    return MatchResult(idx=idx, dist=best, ok=ok)
+
+
+def search_by_window(f1: FrameState, f2: FrameState,
+                     cfg: MatcherConfig = MatcherConfig()) -> MatchResult:
+    """Windowed brute force: candidates within cfg.search_radius px and one
+    level; accept best <= TH_LOW with the ratio test and the rotation
+    histogram."""
+    r = cfg.search_radius
+    dpx = f1.kp_xy[:, None, :] - f2.kp_xy[None, :, :]
+    within = (dpx * dpx).sum(-1) <= r * r
+    lv = _level_band_mask(f1.kp_level, f2.kp_level, 1)
+    dm = hamming.masked_distance(_distance_matrix(f1.desc, f2.desc),
+                                 f1.valid, f2.valid, within & lv)
+    return _finish(dm, cfg, float(cfg.th_low), use_ratio=True,
+                   angles1=f1.kp_angle, angles2=f2.kp_angle)
+
+
+def search_by_projection_frame(cam: cam_mod.CameraParams, f1: FrameState,
+                               f2: FrameState, map_pos: torch.Tensor,
+                               cfg: MatcherConfig = MatcherConfig(),
+                               scale_factor: float = 0.8,
+                               base_radius: float = 7.0) -> MatchResult:
+    """Frame-to-frame projection search: F2's landmarks projected into F1,
+    window-searched at an octave-scaled radius within one level, accept
+    best <= TH_HIGH with the rotation histogram. idx indexes F2's
+    features."""
+    M = map_pos.shape[0]
+    pts_w = map_pos[f2.map_idx.clamp(0, M - 1).long()]
+    pc = se3.transform_points(f1.T_cw, pts_w)
+    proj = cam_mod.world2cam(cam, pc)
+    cand2 = (f2.valid & (f2.map_idx >= 0) & (pc[:, 2] > 0.05)
+             & cam_mod.is_in_frame(cam, proj))
+    inv = torch.full((), 1.0 / scale_factor, dtype=torch.float32,
+                     device=map_pos.device)
+    r = base_radius * torch.pow(inv, f2.kp_level.float())
+    dpx = f1.kp_xy[:, None, :] - proj[None, :, :]
+    within = (dpx * dpx).sum(-1) <= (r * r)[None, :]
+    lv = _level_band_mask(f1.kp_level, f2.kp_level, 1)
+    dm = hamming.masked_distance(_distance_matrix(f1.desc, f2.desc),
+                                 f1.valid, cand2, within & lv)
+    return _finish(dm, cfg, float(cfg.th_high), use_ratio=False,
+                   angles1=f1.kp_angle, angles2=f2.kp_angle)
 
 
 def search_by_projection_map(cam: cam_mod.CameraParams, f1: FrameState,

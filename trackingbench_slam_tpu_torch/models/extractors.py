@@ -1,7 +1,9 @@
-"""ORB extraction: FAST + grid top-k + IC angle + rBRIEF on every level.
+"""ORB extraction: FAST + grid top-k + IC angle + rBRIEF on every level;
+and the direct tracker's FAST + Shi-Tomasi extraction.
 
-Port of trackingbench_slam_tpu/models/extractors.py (extract_orb and its
-helpers), following the reference's TPU branch. Two launches on the card
+Port of trackingbench_slam_tpu/models/extractors.py (extract_orb,
+extract_fast and their helpers), following the reference's TPU branch.
+`extract_fast` makes one FAST launch for its levels. Two launches on the card
 for all levels: the FAST kernel (ops/cuda/fast_kernel.py) scores every
 level, then, once each level's keypoints and blurred image are known, the
 fused ORB-describe kernel (ops/cuda/patch_kernel.py `orb_describe`) takes
@@ -126,3 +128,52 @@ def extract_orb(frame: FrameState, cam: cam_mod.CameraParams,
         kp_xy, resp, valid = kp_xy[order], resp[order], valid[order]
         level, angle, desc = level[order], angle[order], desc[order]
     return with_keypoints(frame, cam, kp_xy, level, angle, resp, desc, valid)
+
+
+def extract_fast(frame: FrameState, cam: cam_mod.CameraParams,
+                 config: ExtractorConfig, pyr_cfg: PyramidConfig,
+                 num_levels: int = 3,
+                 suppress_xy: torch.Tensor | None = None,
+                 suppress_valid: torch.Tensor | None = None) -> FrameState:
+    """SVO-style detection: FAST corners of the first `num_levels` levels
+    (one kernel launch) scored by Shi-Tomasi, one winner per grid cell, no
+    descriptors. With suppress_xy/valid, nothing is taken within half a cell
+    of a live feature."""
+    budgets = level_budgets(config.num_features, num_levels,
+                            pyr_cfg.scale_factor)
+    scores = detect_scores(frame.pyramid[:num_levels],
+                           float(config.min_threshold), config.fast_arc)
+    dev = frame.kp_xy.device
+    all_xy, all_resp, all_valid, all_level = [], [], [], []
+    for lvl in range(num_levels):
+        img = frame.pyramid[lvl]
+        s = pyr_cfg.scale_factor ** lvl
+        st = fast_ops.shi_tomasi_map(img)
+        score = torch.where(scores[lvl] > 0, st, torch.zeros_like(st))
+        if suppress_xy is not None:
+            m = occupancy_mask(img.shape, suppress_xy * s, suppress_valid,
+                               max(int(config.cell_size * s) // 2, 2))
+            score = score * m
+        cell = max(int(config.cell_size * s), 8)
+        xy, resp, valid = fast_ops.grid_topk(score, cell, per_cell=1,
+                                             budget=budgets[lvl])
+        all_xy.append(xy / s)
+        all_resp.append(resp)
+        all_valid.append(valid)
+        all_level.append(torch.full((budgets[lvl],), lvl, dtype=torch.int32,
+                                    device=dev))
+    kp_xy, resp = torch.cat(all_xy), torch.cat(all_resp)
+    valid, level = torch.cat(all_valid), torch.cat(all_level)
+    cap = frame.capacity
+    n = kp_xy.shape[0]
+    if n < cap:
+        def pad(x, value=0):
+            tail = torch.full((cap - n,) + tuple(x.shape[1:]), value,
+                              dtype=x.dtype, device=dev)
+            return torch.cat([x, tail])
+        kp_xy, resp, valid, level = (pad(kp_xy, -1.0), pad(resp), pad(valid),
+                                     pad(level))
+    angle = torch.zeros((cap,), dtype=frame.kp_angle.dtype, device=dev)
+    desc = torch.zeros((cap, 8), dtype=torch.int32, device=dev)
+    return with_keypoints(frame, cam, kp_xy[:cap], level[:cap], angle,
+                          resp[:cap], desc, valid[:cap])

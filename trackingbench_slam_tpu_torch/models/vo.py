@@ -43,7 +43,9 @@ from trackingbench_slam_tpu_torch.ops.align import (anchored_align,
 from trackingbench_slam_tpu_torch.ops.stats import nanmedian
 from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
-from trackingbench_slam_tpu_torch.utils.device import HostCopy, resolve_device
+from trackingbench_slam_tpu_torch.utils.device import (HostCopy,
+                                                       resolve_device,
+                                                       upload_image)
 
 # Named ranges over the steps and their stages, read by profile_main_path.py
 # from torch.profiler; with no profiler running a range costs the host about
@@ -149,12 +151,32 @@ def track_step(state: VOState, img: torch.Tensor, cam: cam_mod.CameraParams,
                           flow=new_flow, T_rel=T_rel)
 
 
+def add_fresh_keypoints(f: FrameState, cam: cam_mod.CameraParams,
+                        cfg: PipelineConfig) -> FrameState:
+    """ORB re-extraction with suppression near the live features; the
+    fresh keypoints fill the free rows, without landmarks."""
+    with _stage("keyframe.extract_orb"):
+        fresh = extract_orb(f, cam, cfg.extractor, cfg.pyramid,
+                            suppress_xy=f.kp_xy, suppress_valid=f.valid)
+    dest = map_mod.free_slot_destinations(~f.valid, fresh.valid)
+    (kp_xy, kp_level, kp_angle, kp_response, desc, bearing, map_idx,
+     valid) = packing.scatter_rows_set(
+        [f.kp_xy, f.kp_level, f.kp_angle, f.kp_response, f.desc, f.bearing,
+         f.map_idx, f.valid],
+        dest,
+        [fresh.kp_xy, fresh.kp_level, fresh.kp_angle, fresh.kp_response,
+         fresh.desc, fresh.bearing, _neg1(f.map_idx),
+         torch.ones_like(f.valid)])
+    return f._replace(kp_xy=kp_xy, kp_level=kp_level, kp_angle=kp_angle,
+                      kp_response=kp_response, desc=desc, bearing=bearing,
+                      map_idx=map_idx, valid=valid)
+
+
 def keyframe_step(state: VOState, img_right: torch.Tensor,
                   cam: cam_mod.CameraParams,
                   cfg: PipelineConfig) -> VOState:
     """Keyframe insertion on the current (tracked) frame."""
     f = state.prev
-    dev = f.kp_xy.device
     # anchored refinement against creation-time anchor patches
     m_pre = state.map
     M0 = m_pre.capacity
@@ -170,23 +192,7 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     f = with_keypoints(f, cam, new_xy, f.kp_level, f.kp_angle,
                        f.kp_response, f.desc, f.valid)
 
-    # re-extract with suppression near live features; fresh keypoints fill
-    # the free slots
-    with _stage("keyframe.extract_orb"):
-        fresh = extract_orb(f, cam, cfg.extractor, cfg.pyramid,
-                            suppress_xy=f.kp_xy, suppress_valid=f.valid)
-    dest = map_mod.free_slot_destinations(~f.valid, fresh.valid)
-    (kp_xy, kp_level, kp_angle, kp_response, desc, bearing, map_idx,
-     valid) = packing.scatter_rows_set(
-        [f.kp_xy, f.kp_level, f.kp_angle, f.kp_response, f.desc, f.bearing,
-         f.map_idx, f.valid],
-        dest,
-        [fresh.kp_xy, fresh.kp_level, fresh.kp_angle, fresh.kp_response,
-         fresh.desc, fresh.bearing, _neg1(f.map_idx),
-         torch.ones_like(f.valid)])
-    f = f._replace(kp_xy=kp_xy, kp_level=kp_level, kp_angle=kp_angle,
-                   kp_response=kp_response, desc=desc, bearing=bearing,
-                   map_idx=map_idx, valid=valid)
+    f = add_fresh_keypoints(f, cam, cfg)
 
     # stereo LK left -> right with a disparity prior from known landmarks
     with _stage("keyframe.stereo_lk"):
@@ -218,9 +224,25 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     depth_ok = (f.valid & lk.converged & fb_ok & disp_ok & row_ok
                 & (depth > 0.1) & (depth < 400.0))
     p_cam = tri.backproject(cam.fx, cam.fy, cam.cx, cam.cy, f.kp_xy, depth)
-    T_wc = se3.inverse(f.T_cw)
-    p_w = se3.transform_points(T_wc, p_cam)
+    p_w = se3.transform_points(se3.inverse(f.T_cw), p_cam)
+    kp_ur = torch.where(depth_ok, lk.xy[:, 0], torch.full_like(depth, -1.0))
+    return map_keyframe(state, f, p_w, depth_ok, cam, cfg, anchor=True,
+                        kp_ur=kp_ur)
 
+
+def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
+                 depth_ok: torch.Tensor, cam: cam_mod.CameraParams,
+                 cfg: PipelineConfig, anchor: bool,
+                 kp_ur: torch.Tensor | None = None) -> VOState:
+    """The map side of a keyframe, shared by the stereo and the mono
+    keyframe steps: projection-map linking and fusion, the visibility
+    census and found-ratio cull, new landmarks at p_w (world points) for
+    the features with depth_ok and no landmark (their anchor cells written
+    when `anchor`), observations, the keyframe ring (with the right-image u
+    kp_ur, where there is one) and the two maintenance passes."""
+    dev = f.kp_xy.device
+    M = state.map.capacity
+    T_wc = se3.inverse(f.T_cw)
     # map-to-frame projection: link fresh features, fuse duplicates
     m0 = state.map
     with _stage("keyframe.search_by_projection_map"):
@@ -280,15 +302,16 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
         m, p_w, f.desc, normal, min_dist, max_dist,
         kf_slot.expand(f.kp_level.shape), f.kp_level, want)
     got = want & (slots < m.capacity)
-    with _stage("keyframe.write_anchor_patches"):
-        m = map_mod.write_anchor_patches(m, f.lk_pyr[0], f.kp_xy, slots, got)
+    if anchor:
+        with _stage("keyframe.write_anchor_patches"):
+            m = map_mod.write_anchor_patches(m, f.lk_pyr[0], f.kp_xy, slots,
+                                             got)
     f = f._replace(map_idx=torch.where(got, slots, f.map_idx))
     feat_idx = torch.arange(f.capacity, dtype=torch.int32, device=dev)
     tracked = f.valid & (f.map_idx >= 0) & ~got
     m = map_mod.add_observations(m, torch.where(got, slots, f.map_idx),
                                  kf_slot, feat_idx, got | tracked,
                                  desc=f.desc)
-    kp_ur = torch.where(depth_ok, lk.xy[:, 0], torch.full_like(depth, -1.0))
     kfs, _ = map_mod.insert_keyframe(state.kfs, f, state.frame_id,
                                      slot=kf_slot, kp_ur=kp_ur)
     m = map_mod.update_normal_and_depth(m, kfs, cfg.pyramid.scale_factor,
@@ -344,10 +367,7 @@ class StereoVO:
         self._pending = None
 
     def _to_device(self, img) -> torch.Tensor:
-        t = torch.as_tensor(img)
-        if t.dtype not in (torch.uint8, torch.float32):
-            t = t.float()
-        return t.to(self.device)
+        return upload_image(img, self.device)
 
     def _fetch_late(self):
         """Inlier count of the PREVIOUS frame (copied asynchronously while

@@ -1,4 +1,5 @@
-"""FAST segment-test corners, 3x3 NMS and grid top-k selection.
+"""FAST segment-test corners, 3x3 NMS, the Shi-Tomasi score and grid top-k
+selection.
 
 Port of trackingbench_slam_tpu/ops/fast.py. `fast_score_map` and `nms3x3`
 are the plain PyTorch semantics of the fused CUDA kernel (csrc/fast.cu,
@@ -63,6 +64,25 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
                 suppressed |= neigh > score
     return torch.where((score > 0.0) & ~suppressed, score,
                        torch.zeros_like(score))
+
+
+def shi_tomasi_map(img: torch.Tensor, half: int = 4) -> torch.Tensor:
+    """Shi-Tomasi score (min eigenvalue of the gradient covariance / (2
+    area)) for every pixel over a (2 half) x (2 half) window of wrapped
+    central differences, the window placed as XLA's "SAME" padding places an
+    even window (half - 1 before the pixel, half after)."""
+    img = img.float()
+    dx = 0.5 * (torch.roll(img, -1, 1) - torch.roll(img, 1, 1))
+    dy = 0.5 * (torch.roll(img, -1, 0) - torch.roll(img, 1, 0))
+    win = 2 * half
+    prods = torch.stack([dx * dx, dy * dy, dx * dy])[None]
+    prods = F.pad(prods, (half - 1, half, half - 1, half))
+    ones = torch.ones((3, 1, win, win), dtype=img.dtype, device=img.device)
+    dxx, dyy, dxy = F.conv2d(prods, ones, groups=3)[0]
+    tr = dxx + dyy
+    det = dxx * dyy - dxy * dxy
+    disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
+    return 0.5 * (tr - disc) / float(win * win)
 
 
 def stable_topk(x: torch.Tensor, k: int):

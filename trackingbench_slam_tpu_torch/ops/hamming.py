@@ -48,6 +48,16 @@ def best_two(dist: torch.Tensor):
     return best_idx, best, second
 
 
+def mutual_best(dist: torch.Tensor):
+    """Cross-check: a row's best column must have that row as its best.
+    Returns (idx (N1,), dist (N1,), mutual (N1,) bool); first minima win
+    ties both ways."""
+    best12 = torch.argmin(dist, dim=1)
+    best21 = torch.argmin(dist, dim=0)
+    rows = torch.arange(dist.shape[0], device=dist.device)
+    return best12, dist[rows, best12], best21[best12] == rows
+
+
 def ratio_filter(best, second, ratio: float):
     return best < ratio * second
 

@@ -213,3 +213,15 @@ class PipelineConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
+
+
+def euroc_stereo_config() -> PipelineConfig:
+    """EuRoC MH operating point (reference test_vo_1, test/test_vo.cpp:
+    109-296), where the indirect tracker runs."""
+    cam = CameraConfig(
+        width=752, height=480,
+        fx=435.2046959714599, fy=435.2046959714599,
+        cx=367.4517211914062, cy=252.2008514404297,
+        bf=47.90639384423901,
+    )
+    return PipelineConfig(camera=cam)

@@ -35,6 +35,8 @@ def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    elif a.dtype == np.float64:   # a Python float among the leaves
+        a = a.astype(np.float32)
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
@@ -94,6 +96,102 @@ def vo_state_to_numpy(state: VOState) -> dict:
 
 def _field(node, name):
     return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+# --- tracker host state. The dicts use the attribute names of this
+# package's trackers; an object given instead (the reference's tracker) is
+# read by the reference's attribute names, listed here where they differ.
+_REFERENCE_NAMES = {
+    "last_mean_depth": "_last_mean_depth",
+    "num_tracked_dev": "_num_tracked_dev",
+    "num_promoted_dev": "_num_promoted_dev",
+    "f0": "_f0", "cur_xy": "_cur_xy", "kf_lk_pyr": "_kf_lk_pyr",
+    "kf_T_cw": "_kf_T_cw", "fid": "_fid", "kf_count": "_kf_count",
+}
+_DIRECT_TENSORS = ("kf_depth", "kf_pos_w", "kf_has_lm", "T_cw",
+                   "last_mean_depth", "num_tracked_dev", "num_promoted_dev")
+
+
+def _host_field(node, name):
+    if isinstance(node, dict):
+        return node[name]
+    return getattr(node, _REFERENCE_NAMES.get(name, name))
+
+
+def _dump_value(v):
+    """Tensors, NamedTuples of tensors and tuples of tensors as numpy."""
+    if v is None or isinstance(v, (bool, int, float)):
+        return v
+    if hasattr(v, "_asdict"):
+        return _dump(v)
+    if isinstance(v, (tuple, list)):
+        return tuple(_leaf("", x) for x in v)
+    return _leaf("", v)
+
+
+def direct_vo_state_to_numpy(vo) -> dict:
+    """A DirectVO's host state with numpy leaves."""
+    out = {name: _dump_value(getattr(vo, name)) for name in _DIRECT_TENSORS}
+    out["kf"] = _dump(vo.kf)
+    out["seed_batches"] = [{k: _dump_value(v) for k, v in b.items()}
+                           for b in vo.seed_batches]
+    out["trajectory"] = [_leaf("", T) for T in vo.trajectory]
+    out["frame_id"] = vo.frame_id
+    return out
+
+
+def load_direct_vo_state(vo, tree) -> None:
+    """Sets a DirectVO's host state (on its device) from `tree`: a dict of
+    `direct_vo_state_to_numpy`, or the reference's DirectVO."""
+    from trackingbench_slam_tpu_torch.solvers.depth_filter import SeedState
+    dev = vo.device
+    for name in _DIRECT_TENSORS:
+        setattr(vo, name, _to_tensor(_host_field(tree, name), dev))
+    vo.kf = _build(_host_field(tree, "kf"), FrameState, dev)
+    vo.seed_batches = [dict(
+        seeds=_build(b["seeds"], SeedState, dev),
+        lk_pyr=tuple(_to_tensor(x, dev) for x in b["lk_pyr"]),
+        kp_xy=_to_tensor(b["kp_xy"], dev),
+        bearing=_to_tensor(b["bearing"], dev),
+        T_cw=_to_tensor(b["T_cw"], dev))
+        for b in _host_field(tree, "seed_batches")]
+    vo.trajectory = [_to_tensor(T, dev)
+                     for T in _host_field(tree, "trajectory")]
+    vo.frame_id = int(_host_field(tree, "frame_id"))
+
+
+def mono_vo_state_to_numpy(vo) -> dict:
+    """A MonoVO's host state with numpy leaves (state: vo_state_to_numpy's
+    dicts, None before the bootstrap)."""
+    return dict(
+        state=None if vo.state is None else vo_state_to_numpy(vo.state),
+        initialized=vo.initialized,
+        f0=None if vo.f0 is None else _dump(vo.f0),
+        cur_xy=_dump_value(vo.cur_xy), kf_lk_pyr=_dump_value(vo.kf_lk_pyr),
+        kf_T_cw=_dump_value(vo.kf_T_cw), fid=vo.fid, kf_count=vo.kf_count,
+        trajectory=[_leaf("", T) for T in vo.trajectory])
+
+
+def load_mono_vo_state(vo, tree) -> None:
+    """Sets a MonoVO's host state (on its device) from `tree`: a dict of
+    `mono_vo_state_to_numpy`, or the reference's MonoVO."""
+    dev = vo.device
+
+    def opt(name, fn):
+        v = _host_field(tree, name)
+        return None if v is None else fn(v)
+
+    vo.state = opt("state", lambda s: vo_state_from_numpy(s, dev))
+    vo.initialized = bool(_host_field(tree, "initialized"))
+    vo.f0 = opt("f0", lambda f: _build(f, FrameState, dev))
+    vo.cur_xy = opt("cur_xy", lambda x: _to_tensor(x, dev))
+    vo.kf_lk_pyr = opt("kf_lk_pyr",
+                       lambda p: tuple(_to_tensor(x, dev) for x in p))
+    vo.kf_T_cw = opt("kf_T_cw", lambda x: _to_tensor(x, dev))
+    vo.fid = int(_host_field(tree, "fid"))
+    vo.kf_count = int(_host_field(tree, "kf_count"))
+    vo.trajectory = [_to_tensor(T, dev)
+                     for T in _host_field(tree, "trajectory")]
 
 
 def vocabulary_from_numpy(voc, device) -> bow.Vocabulary:

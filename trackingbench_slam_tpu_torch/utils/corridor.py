@@ -9,7 +9,10 @@ bench (bench.py:322-404): the main path with 3 LK tracking levels.
 `corridor_frames()` renders bench.py's render_frames sequence (forward motion
 with a continuous yaw down the multi-plane corridor) and `loop_frames()` its
 loop bench's closed circle; right images on the bootstrap frame and on
-keyframes.
+keyframes. `direct_config()` / `direct_frames()`, `mono_config()` /
+`mono_frames()` and `indirect_frames()` (for utils/config.py
+`euroc_stereo_config()`) are the other three trackers' configurations and
+sequences, the JAX package's own gates at these widths.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from trackingbench_slam_tpu_torch.utils.config import (CameraConfig,
                                                        PyramidConfig,
                                                        SolverConfig)
 from trackingbench_slam_tpu_torch.utils.synthetic import (
-    CorridorScene, forward_yaw_trajectory, loop_trajectory)
+    CorridorScene, forward_yaw_trajectory, lateral_trajectory,
+    loop_trajectory)
 
 BASELINE = 0.54
 
@@ -53,19 +57,19 @@ def loop_bench_config() -> PipelineConfig:
     return dataclasses.replace(main_path_config(), lk_track_levels=3)
 
 
+def _u8(a):
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
 def _render(cfg: PipelineConfig, gt: np.ndarray, baseline: float):
     scene = CorridorScene(cfg.camera, width=10.0, height=5.0)
-
-    def u8(a):
-        return np.clip(a, 0, 255).astype(np.uint8)
-
     frames = []
     for i, T in enumerate(gt):
         if i == 0 or (i + 1) % cfg.keyframe_every == 0:
             left, right = scene.stereo_pair(T, baseline)
-            frames.append((u8(left), u8(right)))
+            frames.append((_u8(left), _u8(right)))
         else:
-            frames.append((u8(scene.render(T)), None))
+            frames.append((_u8(scene.render(T)), None))
     return frames, gt, scene
 
 
@@ -80,6 +84,51 @@ def loop_frames(cfg: PipelineConfig, n: int = 96, radius: float = 1.5,
                 baseline: float = BASELINE):
     """The loop bench's closed circle, as corridor_frames."""
     return _render(cfg, loop_trajectory(n, radius=radius), baseline)
+
+
+def direct_config() -> PipelineConfig:
+    """The direct tracker at bench.py's camera and extraction operating
+    point, on the reference's direct pyramid (PyramidConfig(): 5 levels
+    x0.8) with DirectConfig() defaults and a keyframe every 4th frame."""
+    return dataclasses.replace(main_path_config(), pyramid=PyramidConfig(),
+                               keyframe_every=4, local_ba_every=0)
+
+
+def mono_config() -> PipelineConfig:
+    """The monocular tracker at the main path's camera, pyramid, features
+    and map, a keyframe every 4th frame, windowed BA on every 2nd."""
+    return dataclasses.replace(main_path_config(), keyframe_every=4,
+                               local_ba_every=2)
+
+
+def direct_frames(cfg: PipelineConfig, n: int = 24,
+                  baseline: float = BASELINE):
+    """The direct gate's sequence at cfg's camera: forward motion with a
+    slow yaw down the default corridor, a stereo pair on frame 0 and left
+    images after it. Returns ([(left, right or None)], gt)."""
+    gt = forward_yaw_trajectory(n, step=0.05, yaw_rate=0.006)
+    scene = CorridorScene(cfg.camera)
+    frames = [tuple(_u8(x) for x in scene.stereo_pair(gt[0], baseline))]
+    frames += [(_u8(scene.render(T)), None) for T in gt[1:]]
+    return frames, gt
+
+
+def indirect_frames(cfg: PipelineConfig, n: int = 12):
+    """The indirect corridor sequence at cfg's camera: forward motion with
+    a yaw, a stereo pair on every frame at the baseline bf / fx."""
+    gt = forward_yaw_trajectory(n, step=0.08, yaw_rate=0.012)
+    scene = CorridorScene(cfg.camera)
+    baseline = cfg.camera.bf / cfg.camera.fx
+    return [tuple(_u8(x) for x in scene.stereo_pair(T, baseline))
+            for T in gt], gt
+
+
+def mono_frames(cfg: PipelineConfig, n: int = 28):
+    """The monocular sequence at cfg's camera: sideways motion with a
+    gentle yaw (the bootstrap's parallax), left images only."""
+    gt = lateral_trajectory(n, step=0.06, yaw_amp=0.01)
+    scene = CorridorScene(cfg.camera)
+    return [_u8(scene.render(T)) for T in gt], gt
 
 
 def closing_error(poses: np.ndarray, gt: np.ndarray) -> float:

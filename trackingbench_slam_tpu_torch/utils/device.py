@@ -17,6 +17,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def upload_image(img, device: torch.device) -> torch.Tensor:
+    """A frame on `device`, uint8 and float32 kept as they are (make_frame
+    converts on the device), anything else as float32."""
+    t = torch.as_tensor(img)
+    if t.dtype not in (torch.uint8, torch.float32):
+        t = t.float()
+    return t.to(device)
+
+
 class HostCopy:
     """A device tensor's copy into pinned host memory, started without
     blocking; `numpy()` waits for that copy alone (a CUDA event), so a

@@ -1,8 +1,9 @@
-"""Synthetic stereo sequences with exact ground truth (the corridor scene).
+"""Synthetic stereo sequences with exact ground truth.
 
-A copy of the corridor renderer and its two trajectories (forward with yaw,
-and the closed loop) of trackingbench_slam_tpu/utils/synthetic.py, so that
-this package renders the same frames without importing the JAX package.
+A copy of the corridor renderer and three trajectories (forward with yaw,
+the closed loop, lateral) of trackingbench_slam_tpu/utils/synthetic.py, so
+that this package renders the same frames without importing the JAX
+package.
 
 The reference's tests depend on absolute paths to KITTI/EuRoC on the author's
 machine (test/test_vo.cpp:114-122, 619-628) plus a bundled two-frame stereo
@@ -191,6 +192,22 @@ def forward_yaw_trajectory(n: int, step: float = 0.12,
         R_wc = Rotation.from_euler("yx", [yaw, pitch]).as_matrix()
         # advance along the current viewing direction (z axis of camera)
         c = c + R_wc[:, 2] * step
+        T_wc = np.eye(4)
+        T_wc[:3, :3] = R_wc
+        T_wc[:3, 3] = c
+        poses.append(np.linalg.inv(T_wc))
+    return np.stack(poses)
+
+
+def lateral_trajectory(n: int, step: float = 0.04, yaw_amp: float = 0.01):
+    """World->camera poses for a camera translating along +x with a gentle
+    yaw oscillation (the monocular bootstrap's parallax)."""
+    from scipy.spatial.transform import Rotation
+    poses = []
+    for i in range(n):
+        c = np.array([i * step, 0.015 * np.sin(i * 0.4),
+                      0.01 * np.sin(i * 0.23)])
+        R_wc = Rotation.from_euler("y", yaw_amp * np.sin(i * 0.3)).as_matrix()
         T_wc = np.eye(4)
         T_wc[:3, :3] = R_wc
         T_wc[:3, 3] = c
