@@ -47,12 +47,15 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      < 0.04 m, > 30 last-frame inliers, all four kernels launched;
   9. mono: MonoVO at the main path's camera, features and map, 28 lateral
      frames: bootstrapped, scale-aligned ATE after it < 0.06 m, > 150 live
-     landmarks, everything finite, LK, FAST and ORB describe launched;
-     then the direct tracker's seed LK call (half 6, 2 levels, prior) and
-     the mono keyframe's back-track call, recorded in phases 7 and 9,
-     against the plain LK as in phase 3.
-  Beside phases 7-9 stand the JAX package's figures on its own gates
-  (`reference_figures.py`, run once on a CPU; JAX_GATE_FIGURES below);
+     landmarks, everything finite, LK, FAST and ORB describe launched,
+     BA counted;
+     then the kernel calls recorded in phases 7-9 against their plain
+     versions as in phase 3: the direct tracker's seed LK call (half 6, 2
+     levels, prior), the mono keyframe's back-track call, and from the
+     indirect run (match strategy nn) the last frame's FAST launch over
+     the 5-level 752x480 pyramid, its ORB describe of 5 levels, its anchor
+     cells, its stereo LK (2 levels + back-track, prior) and anchored LK,
+     and the first frame's stereo LK (4 levels + back-track);
   10. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
@@ -81,20 +84,6 @@ BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
 # the JAX package's loop-bench accuracy record (BENCH_r05.json)
 LOOP_RECORD = dict(without_closer_m=0.7764, with_closer_m=0.0085,
                    loops_closed=2)
-# the JAX package on its own gates' configurations, on a CPU
-# (`JAX_PLATFORMS=cpu python3 reference_figures.py`): direct and mono at
-# 512x384, indirect per strategy on a 320x240 textured plane
-JAX_GATE_FIGURES = {
-    "direct": dict(ate_m=0.0013416535037562949, num_tracked=546,
-                   num_promoted=199),
-    "indirect": {
-        "nn": dict(ate_m=0.01750908377838597, last_inliers=75),
-        "bf": dict(ate_m=0.017378065740594355, last_inliers=75),
-        "window": dict(ate_m=0.014214268215713909, last_inliers=411),
-        "projection": dict(ate_m=0.014660286270817018, last_inliers=417),
-        "bow": dict(ate_m=0.014733983127385324, last_inliers=369)},
-    "mono": dict(ate_m=0.0058274552235271755, landmarks=850, init_frame=9),
-}
 
 
 def log(msg):
@@ -217,7 +206,7 @@ def lk_bytes(work, n, half, fb, offset):
     return 4 * px + inputs + n * (13 + (5 if fb else 0))
 
 
-def check_fast(pyr, threshold, arc):
+def check_fast(pyr, threshold, arc, where="main path"):
     """The batched launch over the ORB pyramid, exact on every level."""
     import torch
     from trackingbench_slam_tpu_torch.kernel_bench import time_ms
@@ -238,7 +227,7 @@ def check_fast(pyr, threshold, arc):
         img, threshold, arc) for img in pyr], 5)
     shapes = [tuple(img.shape) for img in pyr]
     b, by = bound(sum(h * w for h, w in shapes) * 8, fast_flops(shapes))
-    return [dict(case=f"{len(pyr)}-level ORB pyramid, one launch",
+    return [dict(case=f"{where}: {len(pyr)}-level ORB pyramid, one launch",
                  levels=levels, max_abs_err=err, ms=ms, host_ms=host_ms,
                  plain_ms=plain_ms, bound_ms=b, bound_by=by)]
 
@@ -282,10 +271,10 @@ def orb_describe_agreement(raw, blurred, xy, valid, counts):
     return err, bins_agree
 
 
-def check_orb_describe(case):
-    """The bootstrap keyframe's describe in one launch for all levels; and
-    the same call with every 7th row invalid (the bootstrap has none, later
-    keyframes do)."""
+def check_orb_describe(case, where="main path bootstrap keyframe"):
+    """One extraction's describe in one launch for all levels; and the same
+    call with every 7th row invalid (the main path's bootstrap has none,
+    later keyframes do)."""
     import torch
     from trackingbench_slam_tpu_torch.kernel_bench import time_ms
     from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
@@ -305,7 +294,7 @@ def check_orb_describe(case):
     b, by = bound(2 * 4 * px + n * (8 + 1 + 4 + 32)
                   + table.numel() * table.element_size(),
                   n_valid * orb_ops_per_point())
-    return [dict(case=f"{len(raw)}-level ORB describe, one launch",
+    return [dict(case=f"{where}: {len(raw)}-level ORB describe, one launch",
                  shapes=[list(img.shape) for img in raw], n=n,
                  valid=n_valid, counts=list(counts), bins_agree=bins_agree,
                  also_checked="every 7th row invalid",
@@ -313,8 +302,8 @@ def check_orb_describe(case):
                  bound_ms=b, bound_by=by, library_ms=None)]
 
 
-def check_anchor_cells(case):
-    """The bootstrap keyframe's anchor cells into a 16384-slot atlas."""
+def check_anchor_cells(case, where="bootstrap keyframe"):
+    """One keyframe's anchor cells written into the map's atlas."""
     import torch
     import torch.nn.functional as F
     from trackingbench_slam_tpu_torch.kernel_bench import time_ms
@@ -361,7 +350,7 @@ def check_anchor_cells(case):
     px = covered_pixels(img.shape, [(r0, c0, c + 1)])
     b, by = bound(4 * px + n_ok * c * c * 4 + n * (8 + 4 + 1),
                   n_ok * (c * c * 9 + 4))
-    return [dict(case=f"bootstrap keyframe, N={n}, {n_ok} cells into a "
+    return [dict(case=f"{where}, N={n}, {n_ok} cells into a "
                       f"{atlas.shape[0]}^2 atlas",
                  n=n, cells=n_ok, max_abs_err=err, ms=ms, host_ms=host_ms,
                  call_ms=call_ms, clone_ms=clone_ms, plain_ms=plain_ms,
@@ -604,6 +593,15 @@ def lk_case(name, call):
                  conv_eps=0.01, fb_iters=kw.get("fb_iters", 0)))
 
 
+def anchored_case(name, call):
+    """An `anchored_align` call's arguments as a check_lk case: one level,
+    the templates in the map's atlas."""
+    (atlas, img, centers, init_xy, valid), kw = call
+    return (name, "anchored_align", (atlas,), (img,), centers, init_xy, valid,
+            dict(scale=0.5, half=kw.get("half", 4), iters=kw.get("iters", 10),
+                 conv_eps=kw.get("conv_eps", 0.03)))
+
+
 def gate_launches(name, launches, expected):
     missing = [k for k in expected if launches[k] == 0]
     if missing:
@@ -671,11 +669,36 @@ def direct_phase(counters, device):
     return fig, lk_case("direct seed, half 6, 2 levels, prior", seed[0])
 
 
+def indirect_calls(stack, cfg):
+    """Watches (on `stack`) the kernel calls of an IndirectVO run: the last
+    frame's FAST over the full pyramid, ORB describe, anchor cells, stereo
+    LK with a prior and anchored LK, and the first frame's stereo LK over
+    every LK level. Returns {name: kept call list}."""
+    from trackingbench_slam_tpu_torch.models import extractors
+    from trackingbench_slam_tpu_torch.models import map as map_mod
+    from trackingbench_slam_tpu_torch.models import vo as vo_mod
+    levels = cfg.pyramid.num_levels
+    return {name: stack.enter_context(watched(module, fn, pick, last))
+            for name, (module, fn, pick, last) in {
+                "fast": (extractors, "detect_scores",
+                         lambda a, k: len(a[0]) == levels, True),
+                "orb": (extractors, "orb_describe", lambda a, k: True, True),
+                "anchor": (map_mod, "write_anchor_patches",
+                           lambda a, k: True, True),
+                "stereo_bootstrap": (vo_mod, "lk_pyramidal",
+                                     lambda a, k: k.get("num_levels") != 2,
+                                     False),
+                "stereo": (vo_mod, "lk_pyramidal",
+                           lambda a, k: k.get("num_levels") == 2, True),
+                "anchored": (vo_mod, "anchored_align", lambda a, k: True,
+                             True)}.items()}
+
+
 def indirect_phase(counters, device):
     """IndirectVO at the EuRoC operating point (752x480, 2000 features, 5
     levels x0.8), 12 stereo corridor frames, each of the five strategies;
-    BoW on a vocabulary trained on the card's ORB of every 3rd left
-    image."""
+    BoW on a vocabulary trained on the card's ORB of every 3rd left image.
+    Returns (figures, the kernel calls of the first strategy's run)."""
     from trackingbench_slam_tpu_torch.models.indirect_vo import (
         IndirectVO, MatchStrategy)
     from trackingbench_slam_tpu_torch.utils import metrics
@@ -689,18 +712,39 @@ def indirect_phase(counters, device):
     voc, n_desc = train_vocabulary(cfg, frames, device, every=3)
     out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
                              seconds=time.perf_counter() - t0)
+    calls = None
     for s in MatchStrategy:
         vo = IndirectVO(cfg, s, voc=voc if s is MatchStrategy.BOW else None,
                         device=device)
-        fps, launches = run_counted(counters, device, frames,
-                                    lambda i, f: vo.track(*f), 1)
+        with contextlib.ExitStack() as stack:
+            if calls is None:
+                calls = indirect_calls(stack, cfg)
+            fps, launches = run_counted(counters, device, frames,
+                                        lambda i, f: vo.track(*f), 1)
         poses = vo.poses()
         out[s.value] = dict(
             frames=len(frames), timed=len(frames) - 1, fps=fps,
             ate_m=metrics.ate_rmse(poses, gt, align=True),
             last_inliers=int(vo.state.num_inliers),
             finite=bool(np.isfinite(poses).all()), launches=launches)
-    return out
+    missing = [k for k, v in calls.items() if not v]
+    if missing:
+        raise AssertionError(f"indirect: calls not seen: {missing}")
+    (pyr, threshold, arc), _ = calls["fast"][0]
+    (raw, blurred, xy, valid, counts), _ = calls["orb"][0]
+    (m, img, kp_xy, slots, want), _ = calls["anchor"][0]
+    w = f"{cfg.camera.width}x{cfg.camera.height}"
+    cases = dict(
+        fast=(tuple(pyr), threshold, arc),
+        orb=(tuple(raw), tuple(blurred), xy, valid, list(counts)),
+        anchor=dict(img=img, kp_xy=kp_xy, slots=slots, want=want,
+                    capacity=m.capacity, atlas=m.anchor_atlas),
+        lk=[lk_case(f"indirect stereo {w}, 2 levels + fb, prior",
+                    calls["stereo"][0]),
+            lk_case(f"indirect first stereo {w}, 4 levels + fb",
+                    calls["stereo_bootstrap"][0]),
+            anchored_case(f"indirect anchored {w}", calls["anchored"][0])])
+    return out, cases
 
 
 def mono_phase(counters, device):
@@ -723,8 +767,7 @@ def mono_phase(counters, device):
     fig = dict(frames=len(frames), timed=len(frames) - WARM_MONO, fps=fps,
                render_s=render_s, initialized=vo.initialized,
                finite=bool(np.isfinite(poses).all()), launches=launches,
-               keyframes=vo.kf_count,
-               ba_calls=vo.kf_count // cfg.local_ba_every)
+               keyframes=vo.kf_count, ba_calls=vo.ba_calls)
     if vo.initialized:
         m = vo.state.map
         k0 = next(i for i in range(1, len(frames))
@@ -880,7 +923,6 @@ def main():
         raise AssertionError(f"loop bench failed its gates: {loop}")
 
     direct, seed_case = direct_phase(counters, dev)
-    jd = JAX_GATE_FIGURES["direct"]
     log(f"[direct] {direct['frames']} frames 1226x370, stereo on the first "
         f"only, {direct['timed']} timed: {direct['fps']:.2f} frames/s, ATE "
         f"{direct['ate_m']:.5f} m, tracked {direct['num_tracked']}, promoted "
@@ -890,40 +932,33 @@ def main():
         f"in {direct['sparse_image_align']['cuda_kernels']:.0f} kernels, "
         f"features_align {direct['features_align']['host_ms']:.1f} / "
         f"{direct['features_align']['device_ms']:.3f} ms in "
-        f"{direct['features_align']['cuda_kernels']:.0f} kernels a call "
-        f"(JAX at its gate's 512x384, CPU: ATE {jd['ate_m']:.5f} m, tracked "
-        f"{jd['num_tracked']}, promoted {jd['num_promoted']})")
+        f"{direct['features_align']['cuda_kernels']:.0f} kernels a call")
     gate_launches("direct", direct["launches"],
                   ("lk_align", "fast_score_nms"))
     if not (direct["ate_m"] < 0.05 and direct["num_tracked"] > 40
             and direct["num_promoted"] > 50 and direct["finite"]):
         raise AssertionError(f"direct failed its gates: {direct}")
 
-    indirect = indirect_phase(counters, dev)
+    indirect, indirect_cases = indirect_phase(counters, dev)
     for s, fig in indirect.items():
         if s in ("render_s", "vocabulary"):
             continue
-        ji = JAX_GATE_FIGURES["indirect"][s]
         log(f"[indirect {s}] {fig['frames']} stereo frames 752x480, "
             f"{fig['timed']} timed: {fig['fps']:.2f} frames/s, ATE "
             f"{fig['ate_m']:.5f} m, last-frame inliers {fig['last_inliers']},"
-            f" launches {fig['launches']} (JAX at its gate's 320x240 plane, "
-            f"CPU: ATE {ji['ate_m']:.5f} m, inliers {ji['last_inliers']})")
+            f" launches {fig['launches']}")
         gate_launches(f"indirect {s}", fig["launches"], tuple(counters))
         if not (fig["ate_m"] < 0.04 and fig["last_inliers"] > 30
                 and fig["finite"]):
             raise AssertionError(f"indirect {s} failed its gates: {fig}")
 
     mono, back_case = mono_phase(counters, dev)
-    jm = JAX_GATE_FIGURES["mono"]
     log(f"[mono] {mono['frames']} frames 1226x370, {mono['timed']} timed: "
         f"{mono['fps']:.2f} frames/s, initialized {mono['initialized']} at "
         f"frame {mono.get('init_frame')}, scale-aligned ATE "
         f"{mono.get('ate_m', float('nan')):.5f} m, live landmarks "
         f"{mono.get('landmarks')}, keyframes {mono['keyframes']}, BA calls "
-        f"{mono['ba_calls']}, launches {mono['launches']} (JAX at its gate's "
-        f"512x384, CPU: ATE {jm['ate_m']:.5f} m, landmarks "
-        f"{jm['landmarks']})")
+        f"{mono['ba_calls']}, launches {mono['launches']}")
     gate_launches("mono", mono["launches"], ("lk_align", "fast_score_nms",
                                              "orb_describe"))
     if not mono["initialized"]:
@@ -933,7 +968,27 @@ def main():
             and mono["landmarks_finite"]):
         raise AssertionError(f"mono failed its gates: {mono}")
 
-    new_lk = check_lk([seed_case, back_case])
+    if not mono["ba_calls"] > 0:
+        raise AssertionError(f"mono ran no BA: {mono}")
+
+    c = check_fast(*indirect_cases["fast"], where="indirect last frame")[0]
+    fast_cases.append(c)
+    log("[check] fast_score_nms exact on "
+        + ", ".join(f"{lv['shape'][0]}x{lv['shape'][1]}" for lv in c["levels"])
+        + f" ({c['case']}; {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms)")
+    c = check_orb_describe(indirect_cases["orb"],
+                           where="indirect last frame")[0]
+    orb_cases.append(c)
+    log(f"[check] orb_describe on {c['case']}, N={c['n']} ({c['valid']} "
+        f"valid): max |d angle| {c['max_abs_err']:.2e} rad, bins agree "
+        f"{c['bins_agree']:.5f}, descriptors exact ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms)")
+    c = check_anchor_cells(indirect_cases["anchor"],
+                           where="indirect last keyframe")[0]
+    anchor_cases.append(c)
+    log(f"[check] anchor_cells exact on {c['case']} ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms)")
+    new_lk = check_lk([seed_case, back_case] + indirect_cases["lk"])
     lk_cases += new_lk
     log("[check] lk_align within 1e-3 px on "
         + ", ".join(f"{c['case']} N={c['n']} conv {c['converged']} agree "
@@ -980,7 +1035,6 @@ def main():
               "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
               "loop_bench": dict(loop, jax_record=LOOP_RECORD),
               "direct": direct, "indirect": indirect, "mono": mono,
-              "jax_gate_figures": JAX_GATE_FIGURES,
               "seconds": time.perf_counter() - t_start}
     log(f"[time] the whole script took {result['seconds']:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -301,6 +301,8 @@ def test_mono_vo_tracks_reference_within_1cm(sequence, monkeypatch):
                             with_scale=True) < 0.02
     n_t, n_j = int(vo.state.map.valid.sum()), int(jvo.state.map.valid.sum())
     assert abs(n_t - n_j) <= 0.05 * n_j
+    assert vo.kf_count == jvo._kf_count
+    assert vo.ba_calls == jvo._kf_count // cfg.local_ba_every > 0
 
 
 def test_mono_state_converter_round_trips(sequence):

@@ -101,8 +101,8 @@ def mono_keyframe_step(state: vo_mod.VOState, kf_lk_pyr, kf_T_cw,
     depth_ok = (f.valid & lk.converged & fb_ok & (p_c[:, 2] > 0.1)
                 & (p_k[:, 2] > 0.1) & (cosp < 0.99995) & (reproj < 1.5))
 
-    return vo_mod.map_keyframe(state, f, X_w, depth_ok, cam, cfg,
-                               anchor=False)
+    state, _, _ = vo_mod.map_keyframe(state, f, X_w, depth_ok, cam, cfg)
+    return state
 
 
 class MonoVO:
@@ -130,6 +130,7 @@ class MonoVO:
         self.kf_T_cw = None
         self.fid = 0
         self.kf_count = 0
+        self.ba_calls = 0
 
     def _eye(self) -> torch.Tensor:
         return torch.eye(4, dtype=torch.float32, device=self.device)
@@ -215,6 +216,7 @@ class MonoVO:
                 with _stage("mono.local_ba_step"):
                     self.state = local_ba_step(self.state, self.cam,
                                                self.cfg, num_fixed=2)
+                self.ba_calls += 1
             self.kf_lk_pyr = self.state.prev.lk_pyr
             self.kf_T_cw = self.state.T_cw
         self.trajectory.append(self.state.T_cw)

@@ -226,20 +226,25 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     p_cam = tri.backproject(cam.fx, cam.fy, cam.cx, cam.cy, f.kp_xy, depth)
     p_w = se3.transform_points(se3.inverse(f.T_cw), p_cam)
     kp_ur = torch.where(depth_ok, lk.xy[:, 0], torch.full_like(depth, -1.0))
-    return map_keyframe(state, f, p_w, depth_ok, cam, cfg, anchor=True,
-                        kp_ur=kp_ur)
+    state, slots, got = map_keyframe(state, f, p_w, depth_ok, cam, cfg,
+                                     kp_ur=kp_ur)
+    with _stage("keyframe.write_anchor_patches"):
+        m = map_mod.write_anchor_patches(state.map, f.lk_pyr[0], f.kp_xy,
+                                         slots, got)
+    return state._replace(map=m)
 
 
 def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
                  depth_ok: torch.Tensor, cam: cam_mod.CameraParams,
-                 cfg: PipelineConfig, anchor: bool,
-                 kp_ur: torch.Tensor | None = None) -> VOState:
+                 cfg: PipelineConfig, kp_ur: torch.Tensor | None = None):
     """The map side of a keyframe, shared by the stereo and the mono
     keyframe steps: projection-map linking and fusion, the visibility
     census and found-ratio cull, new landmarks at p_w (world points) for
-    the features with depth_ok and no landmark (their anchor cells written
-    when `anchor`), observations, the keyframe ring (with the right-image u
-    kp_ur, where there is one) and the two maintenance passes."""
+    the features with depth_ok and no landmark, observations, the keyframe
+    ring (with the right-image u kp_ur, where there is one) and the two
+    maintenance passes. Returns (state, slots, got): the new landmarks'
+    slots and which features got one, for the stereo step's anchor
+    cells."""
     dev = f.kp_xy.device
     M = state.map.capacity
     T_wc = se3.inverse(f.T_cw)
@@ -302,10 +307,6 @@ def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
         m, p_w, f.desc, normal, min_dist, max_dist,
         kf_slot.expand(f.kp_level.shape), f.kp_level, want)
     got = want & (slots < m.capacity)
-    if anchor:
-        with _stage("keyframe.write_anchor_patches"):
-            m = map_mod.write_anchor_patches(m, f.lk_pyr[0], f.kp_xy, slots,
-                                             got)
     f = f._replace(map_idx=torch.where(got, slots, f.map_idx))
     feat_idx = torch.arange(f.capacity, dtype=torch.int32, device=dev)
     tracked = f.valid & (f.map_idx >= 0) & ~got
@@ -317,7 +318,7 @@ def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
     m = map_mod.update_normal_and_depth(m, kfs, cfg.pyramid.scale_factor,
                                         cfg.pyramid.num_levels)
     m = map_mod.compute_distinctive_descriptors(m, kfs)
-    return state._replace(prev=f, map=m, kfs=kfs)
+    return state._replace(prev=f, map=m, kfs=kfs), slots, got
 
 
 def track_and_keyframe_step(state: VOState, img_left, img_right,
