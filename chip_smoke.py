@@ -30,33 +30,47 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      BA on every 2nd keyframe, 2048 landmarks): 4 BA calls, every counter
      moving, ATE < 0.01 m, > 500 inliers; then one BA call on the final
      state, fenced, for its time;
-  6. loop bench (bench.py's loop_closing_bench): 96 frames of a closed
+  6. prefetch: every frame utils/prefetch.py's DevicePrefetcher hands out
+     torch.equal to the synchronous upload, and the BA-on live loop fed by
+     it gives the BA-on run's poses exactly; frames/s of both feeds;
+  7. offline: models/offline.py's OfflineStereoVO on the same frames,
+     uploaded once: frames/s beside the live loop's, ATE < 0.01 m,
+     launches equal to the BA-on run's, poses equal to it, the host syncs
+     of one run counted, and the repeated-target row writes run under
+     set_sync_debug_mode("error");
+  8. photometric stress (bench.py's photometric_stress_bench): the 40
+     frames through photometric_stress, tracked plain and with CLAHE
+     (MatcherConfig.equalize), fed by the prefetcher: ATE, inliers,
+     frames/s, launches; every pose finite; the CLAHE run's last track-step
+     LK call (equalized pyramids) against the plain LK as in phase 3;
+  9. loop bench (bench.py's loop_closing_bench): 96 frames of a closed
      circle, 3 LK tracking levels, BA on; a vocabulary trained on the card's
-     ORB descriptors of every 12th left image; one run without and one with
-     a LoopCloser: the closer must close >= 1 loop, its closing error must
-     be < 0.05 m and below the closer-less run's, and every counter must
-     move in the run with the closer;
-  7. direct: DirectVO at bench.py's camera and features on the direct
+     ORB descriptors of every 12th left image; the run without a
+     LoopCloser twice, whose per-frame poses must be torch.equal, and one
+     with it: the closer must close >= 1 loop, its closing error must be
+     < 0.05 m and below the closer-less run's, and every counter must move
+     in the run with the closer;
+  10. direct: DirectVO at bench.py's camera and features on the direct
      pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
      ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
      sparse_image_align and features_align on the run's last call, fenced
      host ms and profiled device ms;
-  8. indirect: IndirectVO at the EuRoC operating point (752x480), 12 stereo
+  11. indirect: IndirectVO at the EuRoC operating point (752x480), 12 stereo
      corridor frames, each of the five match strategies (BoW on a
      vocabulary trained on the card's ORB of every 3rd left image): ATE
      < 0.04 m, > 30 last-frame inliers, all four kernels launched;
-  9. mono: MonoVO at the main path's camera, features and map, 28 lateral
+  12. mono: MonoVO at the main path's camera, features and map, 28 lateral
      frames: bootstrapped, scale-aligned ATE after it < 0.06 m, > 150 live
      landmarks, everything finite, LK, FAST and ORB describe launched,
      BA counted;
-     then the kernel calls recorded in phases 7-9 against their plain
+     then the kernel calls recorded in phases 10-12 against their plain
      versions as in phase 3: the direct tracker's seed LK call (half 6, 2
      levels, prior), the mono keyframe's back-track call, and from the
      indirect run (match strategy nn) the last frame's FAST launch over
      the 5-level 752x480 pyramid, its ORB describe of 5 levels, its anchor
      cells, its stereo LK (2 levels + back-track, prior) and anchored LK,
      and the first frame's stereo LK (4 levels + back-track);
-  10. a `kernels` JSON line (launches on every path), the script's seconds,
+  13. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -514,9 +528,20 @@ def time_methods(obj, names):
     return spent, last_args
 
 
+def first_difference(a, b):
+    """The first index at which two equal-length pose stacks are not
+    torch.equal (None if none), and their largest difference."""
+    import torch
+    first = next((i for i in range(len(a)) if not torch.equal(a[i], b[i])),
+                 None)
+    return first, float((a - b).abs().max())
+
+
 def loop_bench(cfg, frames, gt, counters, device):
     """bench.py's loop_closing_bench on the port: the same frames without
-    and with a LoopCloser."""
+    the closer twice (the second run repeats the first, pose for pose) and
+    with a LoopCloser."""
+    import torch
     from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
     from trackingbench_slam_tpu_torch.models.vo import StereoVO
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
@@ -524,7 +549,10 @@ def loop_bench(cfg, frames, gt, counters, device):
     voc, n_desc = train_vocabulary(cfg, frames, device)
     out = dict(vocabulary=dict(descriptors=n_desc, words=voc.num_words,
                                seconds=time.perf_counter() - t0))
-    for with_lc in (False, True):
+    trajectories = []
+    for key, with_lc in (("without_closer", False),
+                         ("without_closer_again", False),
+                         ("with_closer", True)):
         vo = StereoVO(cfg, device=device)
         if with_lc:
             vo.loop_closer = LoopCloser(voc, vo.cam, min_score=0.015,
@@ -540,13 +568,17 @@ def loop_bench(cfg, frames, gt, counters, device):
         t0 = time.perf_counter()
         fps, launches, lost = drive(vo, frames, counters)
         wall = time.perf_counter() - t0
-        key = "with_closer" if with_lc else "without_closer"
+        if not with_lc:
+            trajectories.append(torch.stack(vo.trajectory))
         out[key] = dict(
             fps=fps, closing_err_m=closing_error(vo.poses(), gt),
             loops_closed=len(vo.loop_events), loop_events=vo.loop_events,
             reloc_events=vo.reloc_events, lost_frames=lost,
             ba_calls=vo.ba_calls, launches=launches, run_s=wall,
             host_s_in=spent)
+    first, diff = first_difference(*trajectories)
+    out["repeat"] = dict(identical=first is None, first_frame_differing=first,
+                         max_pose_diff=diff)
     # the run's last pose-graph correction again, twice, fenced: the first
     # call in a process pays one-off costs that these do not
     args, kwargs = closer_args.get("correct_trajectory", (None, None))
@@ -781,6 +813,158 @@ def mono_phase(counters, device):
     return fig, case
 
 
+def prefetch_phase(cfg, frames, gt, counters, device, live_traj):
+    """The prefetcher's frames against the synchronous upload, then the BA-on
+    live loop fed by it against the synchronously fed run's poses."""
+    import torch
+    from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.utils import metrics
+    from trackingbench_slam_tpu_torch.utils.device import upload_image
+    from trackingbench_slam_tpu_torch.utils.prefetch import DevicePrefetcher
+    differ = []
+    with DevicePrefetcher(frames, depth=2, device=device) as pf:
+        for i, (left, right) in enumerate(frames):
+            L, R = pf[i]
+            same = torch.equal(L, upload_image(left, device)) and (
+                (R is None and right is None) or (
+                    R is not None and right is not None
+                    and torch.equal(R, upload_image(right, device))))
+            if not same:
+                differ.append(i)
+    vo = StereoVO(cfg, device=device)
+    with DevicePrefetcher(frames, depth=2, device=device) as pf:
+        fps, launches, lost = drive(vo, pf, counters)
+    first, diff = first_difference(torch.stack(vo.trajectory), live_traj)
+    return dict(frames=len(frames), timed=len(frames) - WARM_FRAMES, fps=fps,
+                frames_differing_from_upload=differ,
+                ate_m=metrics.ate_rmse(vo.poses(), gt, align=True),
+                last_inliers=int(vo.state.num_inliers), launches=launches,
+                poses_equal_live=first is None, first_frame_differing=first,
+                max_pose_diff_from_live=diff, lost_frames=lost)
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the number of
+    host syncs it made, and the ten source lines that made the most
+    ("file:line": count)."""
+    import collections
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), dict(where.most_common(10))
+
+
+def scatter_sync_free(device):
+    """The repeated-target row writes (ops/packing.py, models/map.py
+    `_set_rows`) under set_sync_debug_mode("error"): they must not sync."""
+    import torch
+    from trackingbench_slam_tpu_torch.models import map as map_mod
+    from trackingbench_slam_tpu_torch.ops import packing
+    idx = torch.tensor([3, 1, 3, 9, 1, 0], device=device)
+    dst = torch.zeros((8, 4), device=device)
+    src = torch.arange(24, dtype=torch.float32, device=device).reshape(6, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, = packing.scatter_rows_set([dst], idx, [src])
+        b = map_mod._set_rows(dst, idx, src)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = dst.clone()
+    for i, j in enumerate(idx.tolist()):
+        if 0 <= j < 8:
+            want[j] = src[i]
+    return bool(torch.equal(a, want) and torch.equal(b, want))
+
+
+def offline_phase(cfg, frames, gt, counters, device, live_traj):
+    """OfflineStereoVO on the main path's frames (uploaded once): frames/s,
+    launches, ATE, its poses against the live loop's, and the host syncs of
+    a second run."""
+    import torch
+    from trackingbench_slam_tpu_torch.models.offline import OfflineStereoVO
+    from trackingbench_slam_tpu_torch.utils import metrics
+    vo = OfflineStereoVO(cfg, device=device)
+    t0 = time.perf_counter()
+    prepared = vo.prepare(frames)
+    sync(device)
+    upload_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = vo.run(prepared=prepared)
+    sync(device)
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    traj = torch.cat([vo._T0[None], res.T_cw])
+    first, diff = first_difference(traj, live_traj)
+    poses = vo.poses()
+    syncs, sync_lines = count_syncs(lambda: vo.run(prepared=prepared))
+    n_kf = int(prepared[2].sum())
+    return dict(frames=len(frames), fps=(len(frames) - 1) / run_s,
+                run_s=run_s, upload_s=upload_s,
+                ate_m=metrics.ate_rmse(poses, gt, align=True),
+                finite=bool(np.isfinite(poses).all()),
+                last_inliers=int(res.num_inliers[-1]), launches=launches,
+                poses_equal_live=first is None, first_frame_differing=first,
+                max_pose_diff_from_live=diff, host_syncs_per_run=syncs,
+                host_sync_lines=sync_lines,
+                keyframes_in_run=n_kf,
+                scatter_writes_sync_free=scatter_sync_free(device))
+
+
+def photometric_phase(cfg, frames, gt, counters, device):
+    """bench.py's photometric_stress_bench on the port: the main path's
+    frames through photometric_stress, tracked plain and with CLAHE
+    (MatcherConfig.equalize), fed by the prefetcher. Returns (figures, the
+    CLAHE run's last track-step LK call as a check_lk case)."""
+    import dataclasses
+    from trackingbench_slam_tpu_torch.matchers import matcher
+    from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.utils import metrics
+    from trackingbench_slam_tpu_torch.utils.prefetch import DevicePrefetcher
+    from trackingbench_slam_tpu_torch.utils.synthetic import \
+        photometric_stress
+
+    def u8(a):
+        return np.clip(a, 0, 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    stressed = [(u8(photometric_stress(L.astype(np.float32), i)),
+                 None if R is None
+                 else u8(photometric_stress(R.astype(np.float32), i)))
+                for i, (L, R) in enumerate(frames)]
+    out = dict(stress_s=time.perf_counter() - t0)
+    case = None
+    for eq in (False, True):
+        c = dataclasses.replace(cfg, matcher=dataclasses.replace(
+            cfg.matcher, equalize=eq))
+        vo = StereoVO(c, device=device)
+        with DevicePrefetcher(stressed, depth=2, device=device) as pf, \
+                watched(matcher, "lk_pyramidal", lambda a, k: True,
+                        last=True) as calls:
+            fps, launches, lost = drive(vo, pf, counters)
+        poses = vo.poses()
+        out["clahe" if eq else "plain"] = dict(
+            frames=len(frames), timed=len(frames) - WARM_FRAMES, fps=fps,
+            ate_m=metrics.ate_rmse(poses, gt, align=True),
+            last_inliers=int(vo.state.num_inliers),
+            finite=bool(np.isfinite(poses).all()), launches=launches,
+            lost_frames=lost)
+        if eq:
+            case = lk_case("CLAHE track, 2 levels, prior, equalized "
+                           "pyramids", calls[0])
+    return out, case
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -887,7 +1071,64 @@ def main():
         f"(fenced, on the final state), launches {ba_on['launches']}")
     gate("main path, BA on", ba_on, ba_on["ba_calls"] == 4)
     launches = ba_on["launches"]
+    live_traj = torch.stack(vo.trajectory)
     del vo
+
+    prefetch = prefetch_phase(cfg, frames, gt, counters, dev, live_traj)
+    log(f"[prefetch] every frame equal to the synchronous upload: "
+        f"{not prefetch['frames_differing_from_upload']}; the BA-on live "
+        f"loop fed by the prefetcher {prefetch['fps']:.2f} frames/s "
+        f"(synchronous upload {ba_on['fps']:.2f}), ATE "
+        f"{prefetch['ate_m']:.5f} m, poses equal to the synchronous run "
+        f"{prefetch['poses_equal_live']} (first differing frame "
+        f"{prefetch['first_frame_differing']}, max |diff| "
+        f"{prefetch['max_pose_diff_from_live']:.3e}), launches "
+        f"{prefetch['launches']}")
+    if prefetch["frames_differing_from_upload"]:
+        raise AssertionError(f"prefetch: frames differ from the upload: "
+                             f"{prefetch['frames_differing_from_upload']}")
+    if not prefetch["poses_equal_live"]:
+        raise AssertionError(f"prefetch-fed poses differ: {prefetch}")
+
+    offline = offline_phase(cfg, frames, gt, counters, dev, live_traj)
+    log(f"[offline] OfflineStereoVO, {offline['frames']} frames uploaded "
+        f"once in {offline['upload_s']:.2f} s: {offline['fps']:.2f} frames/s"
+        f" over frames 1-{offline['frames'] - 1} (live loop "
+        f"{ba_on['fps']:.2f} over its timed frames), ATE "
+        f"{offline['ate_m']:.5f} m, last-frame inliers "
+        f"{offline['last_inliers']}, poses equal to the live loop "
+        f"{offline['poses_equal_live']} (first differing frame "
+        f"{offline['first_frame_differing']}, max |diff| "
+        f"{offline['max_pose_diff_from_live']:.3e}), launches "
+        f"{offline['launches']}, host syncs in a run "
+        f"{offline['host_syncs_per_run']} ({offline['keyframes_in_run']} "
+        f"keyframes; by line {offline['host_sync_lines']}), "
+        f"repeated-target row writes sync-free "
+        f"{offline['scatter_writes_sync_free']}")
+    if not (offline["ate_m"] < 0.01 and offline["finite"]
+            and offline["launches"] == launches
+            and offline["poses_equal_live"]
+            and offline["scatter_writes_sync_free"]):
+        raise AssertionError(f"offline failed its gates: {offline}")
+
+    photometric, clahe_case = photometric_phase(cfg, frames, gt, counters,
+                                                dev)
+    for k in ("plain", "clahe"):
+        fig = photometric[k]
+        log(f"[photometric {k}] {fig['frames']} stressed frames, "
+            f"{fig['timed']} timed: {fig['fps']:.2f} frames/s, ATE "
+            f"{fig['ate_m']:.5f} m, last-frame inliers "
+            f"{fig['last_inliers']}, launches {fig['launches']}, lost after "
+            f"frames {fig['lost_frames']}")
+        if not fig["finite"]:
+            raise AssertionError(f"photometric {k}: poses not finite")
+    clahe_lk = check_lk([clahe_case])
+    lk_cases += clahe_lk
+    c = clahe_lk[0]
+    log(f"[check] lk_align within 1e-3 px on {c['case']} N={c['n']} conv "
+        f"{c['converged']} agree {c['flags_agree']:.4f} err "
+        f"{c['max_abs_err']:.2e} ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms)")
 
     lcfg = loop_bench_config()
     t0 = time.perf_counter()
@@ -915,6 +1156,16 @@ def main():
         f"(JAX record: {LOOP_RECORD['without_closer_m']} m without, "
         f"{LOOP_RECORD['with_closer_m']} m with, "
         f"{LOOP_RECORD['loops_closed']} loops)")
+    rep = loop["repeat"]
+    wo2 = loop["without_closer_again"]
+    log(f"[loop bench repeat] the closer-less run again on the same frames: "
+        f"poses identical {rep['identical']} (first differing frame "
+        f"{rep['first_frame_differing']}, max |diff| "
+        f"{rep['max_pose_diff']:.3e}); closing error "
+        f"{wo['closing_err_m']:.4f} m and {wo2['closing_err_m']:.4f} m")
+    if not rep["identical"]:
+        raise AssertionError(f"loop bench: the closer-less run did not "
+                             f"repeat: {rep}")
     missing = [k for k, v in wi["launches"].items() if v == 0]
     if missing:
         raise AssertionError(f"loop bench: kernels not launched: {missing}")
@@ -998,7 +1249,12 @@ def main():
 
     paths = {"main_path_ba_off": ba_off["launches"],
              "main_path": launches,
+             "main_path_prefetch": prefetch["launches"],
+             "offline": offline["launches"],
+             "photometric_plain": photometric["plain"]["launches"],
+             "photometric_clahe": photometric["clahe"]["launches"],
              "loop_bench_without_closer": wo["launches"],
+             "loop_bench_without_closer_again": wo2["launches"],
              "loop_bench_with_closer": wi["launches"],
              "direct": direct["launches"],
              **{f"indirect_{s}": fig["launches"]
@@ -1033,6 +1289,8 @@ def main():
     ]
     result = {"kernels": kernels, "main_path": ba_on,
               "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
+              "prefetch": prefetch, "offline": offline,
+              "photometric": photometric,
               "loop_bench": dict(loop, jax_record=LOOP_RECORD),
               "direct": direct, "indirect": indirect, "mono": mono,
               "seconds": time.perf_counter() - t_start}

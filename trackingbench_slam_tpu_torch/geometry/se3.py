@@ -69,8 +69,10 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation and (..., 3) translation -> (..., 4, 4)."""
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(top.shape[:-2] + (1, 4))
+    # filled on the device: a host-built row would be a synchronous copy
+    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], -2)
 
 

@@ -23,6 +23,7 @@ from trackingbench_slam_tpu_torch.models.frame import (FrameState,
                                                        is_in_frustum)
 from trackingbench_slam_tpu_torch.models.map import MapState
 from trackingbench_slam_tpu_torch.ops import hamming
+from trackingbench_slam_tpu_torch.ops import image as image_ops
 from trackingbench_slam_tpu_torch.ops import orb as orb_ops
 from trackingbench_slam_tpu_torch.ops.align import lk_pyramidal
 from trackingbench_slam_tpu_torch.ops.fast import stable_topk
@@ -206,13 +207,17 @@ def search_by_opflow(f1: FrameState, f2: FrameState,
                      uniform: torch.Tensor | None = None):
     """LK-track F2's keypoints into F1 (identity index matching), then
     reject with F-RANSAC. Returns (MatchResult, tracked_xy (N, 2)). RANSAC
-    draws from `generator`, or uses the given `uniform` (256, N) draws."""
+    draws from `generator`, or uses the given `uniform` (256, N) draws.
+    With cfg.equalize, LK runs on CLAHE-equalized copies of both LK
+    pyramids (the frames keep theirs)."""
+    f1_pyr, f2_pyr = f1.lk_pyr, f2.lk_pyr
     if cfg.equalize:
-        raise NotImplementedError("CLAHE equalization is not ported")
-    res = lk_pyramidal(f2.lk_pyr, f1.lk_pyr, f2.kp_xy, f2.valid, 0.5,
+        f1_pyr = tuple(image_ops.clahe(p) for p in f1_pyr)
+        f2_pyr = tuple(image_ops.clahe(p) for p in f2_pyr)
+    res = lk_pyramidal(f2_pyr, f1_pyr, f2.kp_xy, f2.valid, 0.5,
                        half=10, iters=30,
                        num_levels=(num_levels if num_levels is not None
-                                   else len(f2.lk_pyr)),
+                                   else len(f2_pyr)),
                        init_offset=init_offset)
     h, w = f1.pyramid[0].shape
     inb = ((res.xy[:, 0] >= 0) & (res.xy[:, 0] < w)

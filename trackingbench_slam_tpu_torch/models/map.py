@@ -137,14 +137,14 @@ def _drop_index(idx: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
-    """dst.at[idx].set(src, mode="drop") along dim 0."""
-    n = dst.shape[0]
-    ext = torch.cat([dst, dst[:1]])
+    """dst.at[idx].set(src, mode="drop") along dim 0; a repeated index takes
+    its last source row (packing.last_writer), as the reference on the
+    CPU."""
     if not torch.is_tensor(src):
         src = torch.full((idx.shape[0],) + tuple(dst.shape[1:]), src,
                          dtype=dst.dtype, device=dst.device)
-    ext.index_copy_(0, _drop_index(idx, n), src.to(dst.dtype))
-    return ext[:n]
+    return packing.take_rows(dst, packing.last_writer(idx, dst.shape[0]),
+                             src)
 
 
 def _add_rows(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
@@ -227,11 +227,14 @@ def add_observations(m: MapState, point_idx, kf_slot, feat_idx, want,
     if desc is None:
         desc = torch.zeros((feat_idx.shape[0], 8), dtype=torch.int32,
                            device=dev)
-    obs_kf = _set_rows(m.obs_kf.reshape(M * K), flat, kf_b).reshape(M, K)
-    obs_feat = _set_rows(m.obs_feat.reshape(M * K), flat,
-                         feat_idx.int()).reshape(M, K)
-    obs_desc = _set_rows(m.obs_desc.reshape(M * K, 8), flat,
-                         desc).reshape(M, K, 8)
+    # two features of one keyframe on one landmark name the same (pi, col):
+    # one writer for all three tables, so the observation stays whole, as
+    # the reference's single packed scatter keeps it
+    obs_kf, obs_feat, obs_desc = packing.scatter_rows_set(
+        [m.obs_kf.reshape(M * K), m.obs_feat.reshape(M * K),
+         m.obs_desc.reshape(M * K, 8)], flat, [kf_b, feat_idx.int(), desc])
+    obs_kf, obs_feat = obs_kf.reshape(M, K), obs_feat.reshape(M, K)
+    obs_desc = obs_desc.reshape(M, K, 8)
     obs_count = _add_rows(m.obs_count, pi, want.int())
     return m._replace(obs_kf=obs_kf, obs_feat=obs_feat, obs_desc=obs_desc,
                       obs_count=obs_count)
@@ -360,9 +363,9 @@ def insert_keyframe(kfs: KeyframeStore, frame, frame_id, slot=None,
                            device=frame.kp_xy.device)
     idx = torch.as_tensor(slot, device=kfs.valid.device).long().reshape(1)
 
-    def put(table, row):
-        return _set_rows(table, idx, torch.as_tensor(
-            row, device=table.device).to(table.dtype)[None])
+    def put(table, row):   # a Python value is filled on the device
+        return _set_rows(table, idx, row.to(table.dtype)[None]
+                         if torch.is_tensor(row) else row)
 
     return kfs._replace(
         T_cw=put(kfs.T_cw, frame.T_cw), kp_xy=put(kfs.kp_xy, frame.kp_xy),

@@ -301,8 +301,8 @@ def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
                            ** (cfg.pyramid.num_levels - 1))
 
     kf_slot = map_mod.next_kf_slot(state.kfs).to(torch.int32)
-    m = map_mod.purge_kf_slot(state.map, kf_slot,
-                              state.kfs.valid[kf_slot.long()])
+    m = map_mod.purge_kf_slot(state.map, kf_slot, state.kfs.valid.index_select(
+        0, kf_slot.long().reshape(1))[0])
     m, slots = map_mod.add_points(
         m, p_w, f.desc, normal, min_dist, max_dist,
         kf_slot.expand(f.kp_level.shape), f.kp_level, want)

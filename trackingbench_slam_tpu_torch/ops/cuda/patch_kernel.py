@@ -27,6 +27,7 @@ import functools
 import torch
 
 from trackingbench_slam_tpu_torch.ops import orb as orb_ops
+from trackingbench_slam_tpu_torch.ops import packing
 from trackingbench_slam_tpu_torch.ops.cuda import build
 
 PATCH = 32
@@ -244,13 +245,13 @@ def anchor_cells_plain(img, kp_xy, slots, want, atlas, capacity):
     G2 = g * g
     ok = want & (slots >= 0) & (slots < capacity)
     cells = bilinear_cell_patches(img, kp_xy)
-    # the atlas in cell order plus a scratch cell G2 for the dropped rows
+    # the atlas in cell order, each written cell gathered from its row
     order = atlas.reshape(g, c, g, c).permute(0, 2, 1, 3).reshape(G2, c, c)
-    ext = torch.cat([order, order[:1]])
-    ext.index_copy_(0, torch.where(ok, slots, torch.full_like(slots, G2)
-                                   ).long(), cells)
-    return ext[:G2].reshape(g, g, c, c).permute(0, 2, 1, 3).reshape(g * c,
-                                                                   g * c)
+    winner = packing.last_writer(
+        torch.where(ok, slots, torch.full_like(slots, -1)), G2)
+    order = packing.take_rows(order, winner, cells)
+    return order.reshape(g, g, c, c).permute(0, 2, 1, 3).reshape(g * c,
+                                                                 g * c)
 
 
 _cells_fn = None

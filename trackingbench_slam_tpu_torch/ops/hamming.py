@@ -42,8 +42,9 @@ def best_two(dist: torch.Tensor):
     best_idx = torch.argmin(dist, dim=1)
     rows = torch.arange(dist.shape[0], device=dist.device)
     best = dist[rows, best_idx]
-    masked = dist.clone()
-    masked[rows, best_idx] = INF_DIST
+    # a scalar scatter: writing a Python value by indexing copies it from
+    # the host, which waits for the device
+    masked = dist.scatter(1, best_idx[:, None], INF_DIST)
     second = masked.min(dim=1).values
     return best_idx, best, second
 

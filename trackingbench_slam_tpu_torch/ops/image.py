@@ -125,3 +125,64 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return top * (1 - wy) + bot * wy
+
+
+def clahe_like(img: torch.Tensor, clip: float = 3.0,
+               grid: int = 8) -> torch.Tensor:
+    """Global contrast normalization (mean/std to mid-gray), the cheap
+    option beside `clahe` (ops/image.py:137 of the reference). The standard
+    deviation is the population one, as jnp.std."""
+    mean = img.mean()
+    std = img.std(correction=0) + 1e-6
+    return torch.clamp((img - mean) / std * 48.0 + 127.0, 0.0, 255.0)
+
+
+def clahe(img: torch.Tensor, clip: float = 3.0, grid: int = 8,
+          bins: int = 256) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization, as the reference's
+    `clahe` (ops/image.py:148; cv::createCLAHE(3.0, Size(8, 8))): per-tile
+    histograms as one integer bincount over tile * bins + intensity (exact
+    in any order), each bin clipped at clip * pixels / bins with the excess
+    spread evenly, cumsum LUTs, and a bilinear blend of the 4 tile LUTs
+    around each pixel. Tiles are ceil-divided; past the outermost tile
+    centres the nearest tile's LUT is used alone (the reference's
+    round(clip(.)) edge rule). Float (H, W) images in [0, 255]."""
+    h, w = img.shape
+    dev = img.device
+    th = -(-h // grid)
+    tw = -(-w // grid)
+    x = torch.clamp(img, 0.0, 255.0)
+    q = torch.clamp((x * (bins / 256.0)).to(torch.int32), 0, bins - 1)
+    ys = torch.arange(h, device=dev) // th
+    xs = torch.arange(w, device=dev) // tw
+    tile_id = ys[:, None] * grid + xs[None, :]
+    seg = (tile_id * bins + q).reshape(-1)
+    hist = torch.bincount(seg, minlength=grid * grid * bins).to(
+        torch.float32).reshape(grid * grid, bins)
+    npx = torch.clamp(hist.sum(1, keepdim=True), min=1.0)
+    limit = torch.clamp(clip * npx / bins, min=1.0)
+    excess = torch.clamp(hist - limit, min=0.0).sum(1, keepdim=True)
+    hist = torch.minimum(hist, limit) + excess / bins
+    lut = torch.clamp(torch.cumsum(hist, 1) / npx * 255.0, 0.0, 255.0)
+
+    cy = (torch.arange(h, dtype=img.dtype, device=dev) - (th - 1) / 2.0) / th
+    cx = (torch.arange(w, dtype=img.dtype, device=dev) - (tw - 1) / 2.0) / tw
+    y0 = torch.clamp(torch.floor(cy).long(), 0, grid - 1)
+    x0 = torch.clamp(torch.floor(cx).long(), 0, grid - 1)
+    y1 = torch.clamp(y0 + 1, 0, grid - 1)
+    x1 = torch.clamp(x0 + 1, 0, grid - 1)
+    fy = torch.clamp(cy - torch.floor(cy), 0.0, 1.0)
+    fx = torch.clamp(cx - torch.floor(cx), 0.0, 1.0)
+    fy = torch.where((cy < 0) | (cy > grid - 1),
+                     torch.round(torch.clamp(cy, 0, 1)), fy)
+    fx = torch.where((cx < 0) | (cx > grid - 1),
+                     torch.round(torch.clamp(cx, 0, 1)), fx)
+    flat = lut.reshape(-1)
+    ql = q.long()
+
+    def look(ty, tx):
+        return flat[(ty[:, None] * grid + tx[None, :]) * bins + ql]
+
+    top = look(y0, x0) * (1 - fx)[None, :] + look(y0, x1) * fx[None, :]
+    bot = look(y1, x0) * (1 - fx)[None, :] + look(y1, x1) * fx[None, :]
+    return top * (1 - fy)[:, None] + bot * fy[:, None]

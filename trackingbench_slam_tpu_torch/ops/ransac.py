@@ -105,8 +105,9 @@ def fundamental_ransac(p1: torch.Tensor, p2: torch.Tensor,
     F_px = T2.T @ Fs @ T1
     d = _sampson_epipolar_dist(F_px, p1, p2)                  # (S, N)
     votes = ((d < threshold) & valid).sum(-1)
-    best = torch.argmax(votes)
-    F_best = F_px[best]
-    inliers = (d[best] < threshold) & valid
-    inliers = torch.where(votes[best] >= 8, inliers, valid)
+    # the winner's rows by index_select: no host read of `best`
+    best = torch.argmax(votes).reshape(1)
+    F_best = F_px.index_select(0, best)[0]
+    inliers = (d.index_select(0, best)[0] < threshold) & valid
+    inliers = torch.where(votes.index_select(0, best)[0] >= 8, inliers, valid)
     return inliers, F_best

@@ -214,6 +214,22 @@ class PipelineConfig:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
+    @classmethod
+    def from_json(cls, s: str) -> "PipelineConfig":
+        """The config `to_json` wrote (or the reference's to_json); keys
+        this package does not know are skipped, as the reference skips
+        them."""
+        def build(klass, sub):
+            fields = {f.name: f for f in dataclasses.fields(klass)}
+            kwargs = {}
+            for k, v in sub.items():
+                if k not in fields:
+                    continue
+                kwargs[k] = (build(fields[k].default.__class__, v)
+                             if isinstance(v, dict) else v)
+            return klass(**kwargs)
+        return build(cls, json.loads(s))
+
 
 def euroc_stereo_config() -> PipelineConfig:
     """EuRoC MH operating point (reference test_vo_1, test/test_vo.cpp:

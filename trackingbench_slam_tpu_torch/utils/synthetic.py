@@ -1,9 +1,9 @@
 """Synthetic stereo sequences with exact ground truth.
 
-A copy of the corridor renderer and three trajectories (forward with yaw,
-the closed loop, lateral) of trackingbench_slam_tpu/utils/synthetic.py, so
-that this package renders the same frames without importing the JAX
-package.
+A copy of the corridor renderer, three trajectories (forward with yaw,
+the closed loop, lateral) and `photometric_stress` of
+trackingbench_slam_tpu/utils/synthetic.py, so that this package renders the
+same frames without importing the JAX package.
 
 The reference's tests depend on absolute paths to KITTI/EuRoC on the author's
 machine (test/test_vo.cpp:114-122, 619-628) plus a bundled two-frame stereo
@@ -236,3 +236,33 @@ def loop_trajectory(n: int, radius: float = 1.2, height_amp: float = 0.02,
         T_wc[:3, 3] = c
         poses.append(np.linalg.inv(T_wc))
     return np.stack(poses)
+
+
+def photometric_stress(img: np.ndarray, frame_index: int, seed: int = 0,
+                       flicker: float = 0.25, vignette: float = 0.35,
+                       noise: float = 3.0, occluder: float = 0.12):
+    """Deterministic photometric degradation of a rendered frame (copy of
+    the reference's utils/synthetic.py:335): per-frame exposure flicker
+    (gain and bias), radial vignetting, sensor noise and a moving dark
+    occluder strip, the conditions the CLAHE track path is for. A numpy
+    function of (image, frame_index, seed) only; float32 in [0, 255]."""
+    h, w = img.shape
+    r = np.random.RandomState(seed * 100003 + frame_index)
+    out = img.astype(np.float32)
+    if flicker > 0:
+        gain = 1.0 + flicker * np.sin(frame_index * 0.7) \
+            + 0.05 * r.randn()
+        bias = 12.0 * np.sin(frame_index * 0.45 + 1.0)
+        out = out * gain + bias
+    if vignette > 0:
+        ys, xs = np.mgrid[0:h, 0:w]
+        r2 = (((xs - w / 2) / (w / 2)) ** 2
+              + ((ys - h / 2) / (h / 2)) ** 2)
+        out = out * (1.0 - vignette * r2).astype(np.float32)
+    if noise > 0:
+        out = out + r.randn(h, w).astype(np.float32) * noise
+    if occluder > 0:
+        ow = max(int(w * occluder), 1)
+        x0 = int((frame_index * 0.035 % 1.0) * (w - ow))
+        out[:, x0:x0 + ow] *= 0.25
+    return np.clip(out, 0.0, 255.0)
