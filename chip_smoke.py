@@ -63,14 +63,33 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      frames: bootstrapped, scale-aligned ATE after it < 0.06 m, > 150 live
      landmarks, everything finite, LK, FAST and ORB describe launched,
      BA counted;
-     then the kernel calls recorded in phases 10-12 against their plain
+  13. sequences, the recorded-dataset path, in a temporary directory: (a)
+     40 corridor frames written by utils/datasets.py save_corridor_kitti as
+     KITTI PNGs (1226x370), every frame decoded by the loader equal to the
+     array written, tracked by StereoVO at the main path's configuration
+     and the written camera fed by the loader: launches equal to the main
+     path's, ATE < 0.05 m, > 500 inliers, poses torch.equal to the same
+     frames tracked from memory (frames/s of both), the KITTI and TUM
+     exports read back within 1e-5; (b) sequence_eval.real_sequence_eval
+     on a 10-frame save_synthetic_kitti root (.npy, kitti_stereo_config: a
+     5-level ORB pyramid): kitti00, 10 frames, ATE < 0.05 m, both
+     trajectory files in chiprun_out/, every counter moving; (c) 24 frames in the EuRoC layout
+     (752x480) through load_euroc: stamps 0.05 s apart, ground truth
+     parsed, tracked at euroc_stereo_config with the written camera, ATE
+     < 0.03 m; (d) undistort_image of (c)'s first frame and
+     undistort_points on a 16x16 grid, EuRoC cam0's radtan coefficients,
+     on the card within 1e-3 and 1e-4 px of the CPU; (e) the demo at its
+     defaults, exit 0;
+     then the kernel calls recorded in phases 10-13 against their plain
      versions as in phase 3: the direct tracker's seed LK call (half 6, 2
-     levels, prior), the mono keyframe's back-track call, and from the
+     levels, prior), the mono keyframe's back-track call, from the
      indirect run (match strategy nn) the last frame's FAST launch over
      the 5-level 752x480 pyramid, its ORB describe of 5 levels, its anchor
      cells, its stereo LK (2 levels + back-track, prior) and anchored LK,
-     and the first frame's stereo LK (4 levels + back-track);
-  13. a `kernels` JSON line (launches on every path), the script's seconds,
+     and the first frame's stereo LK (4 levels + back-track), and from
+     (b) the last keyframe's FAST over the 5-level 1226x370 pyramid, its
+     ORB describe and its anchor cells;
+  14. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -488,27 +507,6 @@ def ba_call_ms(vo, reps=3):
     return out
 
 
-def train_vocabulary(cfg, frames, device, every=12):
-    """bench.py's in-domain vocabulary: ORB of every `every`-th left image,
-    the first 4000 valid descriptors, k = 6, L = 3, seed 0."""
-    import torch
-    from trackingbench_slam_tpu_torch.bow import vocabulary as bow
-    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
-    from trackingbench_slam_tpu_torch.models.extractors import extract_orb
-    from trackingbench_slam_tpu_torch.models.frame import make_frame
-    cam = cam_mod.CameraParams.from_config(cfg.camera, device)
-    descs = []
-    for i in range(0, len(frames), every):
-        f = make_frame(torch.from_numpy(frames[i][0]).to(device),
-                       cfg.extractor.num_features, cfg.pyramid.num_levels,
-                       cfg.pyramid.scale_factor)
-        f = extract_orb(f, cam, cfg.extractor, cfg.pyramid)
-        descs.append(f.desc[f.valid].cpu().numpy())
-    descs = np.concatenate(descs)[:4000]
-    return bow.train(descs, branching=6, depth=3, seed=0,
-                     device=device), len(descs)
-
-
 def time_methods(obj, names):
     """Wraps each named method of `obj` to sum the host seconds spent in it
     (not fenced: the run is host-bound) and count its calls; `last_args`
@@ -544,6 +542,7 @@ def loop_bench(cfg, frames, gt, counters, device):
     import torch
     from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
     from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     t0 = time.perf_counter()
     voc, n_desc = train_vocabulary(cfg, frames, device)
@@ -733,6 +732,7 @@ def indirect_phase(counters, device):
     Returns (figures, the kernel calls of the first strategy's run)."""
     from trackingbench_slam_tpu_torch.models.indirect_vo import (
         IndirectVO, MatchStrategy)
+    from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils import metrics
     from trackingbench_slam_tpu_torch.utils.config import euroc_stereo_config
     from trackingbench_slam_tpu_torch.utils.corridor import indirect_frames
@@ -963,6 +963,201 @@ def photometric_phase(cfg, frames, gt, counters, device):
             case = lk_case("CLAHE track, 2 levels, prior, equalized "
                            "pyramids", calls[0])
     return out, case
+
+
+@contextlib.contextmanager
+def written_images(datasets):
+    """While inside, the uint8 array of every PNG that the dataset writers
+    write is kept in the yielded dict, by path."""
+    real = datasets._write_gray_png
+    kept = {}
+
+    def write(path, img):
+        kept[path] = np.clip(img, 0, 255).astype(np.uint8)
+        real(path, img)
+    datasets._write_gray_png = write
+    try:
+        yield kept
+    finally:
+        datasets._write_gray_png = real
+
+
+def decoded_exactly(seq, kept):
+    """Every frame of `seq` decoded equal to the array written there."""
+    loaders = [seq.left] + ([seq.right] if seq.right is not None else [])
+    return len(kept) == sum(len(ld) for ld in loaders) and all(
+        np.array_equal(ld[i], kept[ld.paths[i]])
+        for ld in loaders for i in range(len(ld)))
+
+
+def export_round_trip(poses, timestamps, d):
+    """The largest difference after writing and reading back the KITTI and
+    TUM files (poses and TUM timestamps)."""
+    from trackingbench_slam_tpu_torch.utils import trajectory_io
+    k, t = os.path.join(d, "traj.kitti.txt"), os.path.join(d, "traj.tum.txt")
+    trajectory_io.save_kitti_trajectory(k, poses)
+    trajectory_io.save_tum_trajectory(t, poses, timestamps)
+    ts, P = trajectory_io.load_tum_trajectory(t)
+    return max(float(np.abs(trajectory_io.load_kitti_trajectory(k)
+                            - poses).max()),
+               float(np.abs(P - poses).max()),
+               float(np.abs(ts - timestamps).max()))
+
+
+def sequences_phase(counters, device, out_dir):
+    """The recorded-dataset path: sequences written by the package's own
+    writers into a temporary directory, read back through its loaders and
+    tracked. (a) the corridor in the KITTI layout at the main path's
+    widths, (b) real_sequence_eval on a KITTI root, (c) the EuRoC layout,
+    (d) undistortion with EuRoC cam0's radtan coefficients on the card
+    against the CPU, (e) the demo. Returns (figures, the kernel calls (b)
+    recorded)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from trackingbench_slam_tpu_torch import demo, sequence_eval
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.models import extractors
+    from trackingbench_slam_tpu_torch.models import map as map_mod
+    from trackingbench_slam_tpu_torch.models.vo import StereoVO
+    from trackingbench_slam_tpu_torch.utils import datasets, metrics
+    from trackingbench_slam_tpu_torch.utils.config import euroc_stereo_config
+    from trackingbench_slam_tpu_torch.utils.corridor import main_path_config
+    out = {}
+    t_phase = time.perf_counter()
+
+    def track(cfg, frames, gt, warm):
+        vo = StereoVO(cfg, device=device)
+        fps, launches = run_counted(counters, device, frames,
+                                    lambda i, f: vo.track(*f), warm)
+        poses = vo.poses()
+        return vo, dict(frames=len(frames), timed=len(frames) - warm, fps=fps,
+                        ate_m=metrics.ate_rmse(poses, gt, align=True),
+                        last_inliers=int(vo.state.num_inliers),
+                        finite=bool(np.isfinite(poses).all()),
+                        launches=launches, ba_calls=vo.ba_calls)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the corridor as KITTI PNGs at bench.py's widths
+        t0 = time.perf_counter()
+        with written_images(datasets) as kept:
+            seq = datasets.save_corridor_kitti(os.path.join(tmp, "kitti"),
+                                               n_frames=N_FRAMES)
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact = decoded_exactly(seq, kept)
+        decode_s = time.perf_counter() - t0
+        in_memory = [(kept[a], kept[b]) for a, b in zip(seq.left.paths,
+                                                        seq.right.paths)]
+        del kept
+        # the writer's camera: bench.py's focal length, centred
+        h, w = seq.left[0].shape
+        cfg = main_path_config()
+        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+            cfg.camera, cx=w / 2, cy=h / 2))
+        vo, fig = track(cfg, seq, seq.gt_T_cw, WARM_FRAMES)
+        # the same frames from memory: what reading them from disk costs
+        vo_mem, mem = track(cfg, in_memory, seq.gt_T_cw, WARM_FRAMES)
+        first, _ = first_difference(torch.stack(vo.trajectory),
+                                    torch.stack(vo_mem.trajectory))
+        fig.update(render_s=render_s, decoded_exactly=exact,
+                   decode_all_s=decode_s, fps_in_memory=mem["fps"],
+                   poses_equal_in_memory=first is None,
+                   export_max_diff=export_round_trip(vo.poses(),
+                                                     seq.timestamps, tmp))
+        out["kitti_layout"] = fig
+        del vo, vo_mem, seq, in_memory
+
+        # (b) the reference's protocol on a KITTI root of .npy frames, its
+        # last keyframe's FAST, ORB describe and anchor cells recorded
+        root = os.path.join(tmp, "kitti_npy")
+        t0 = time.perf_counter()
+        datasets.save_synthetic_kitti(root, n_frames=10)
+        render_s = time.perf_counter() - t0
+        for fn in counters.values():
+            fn.launches = 0
+        levels = 5
+        with contextlib.ExitStack() as stack:
+            calls = {name: stack.enter_context(watched(module, fn, pick, True))
+                     for name, (module, fn, pick) in {
+                         "fast": (extractors, "detect_scores",
+                                  lambda a, k: len(a[0]) == levels),
+                         "orb": (extractors, "orb_describe",
+                                 lambda a, k: len(a[0]) == levels),
+                         "anchor": (map_mod, "write_anchor_patches",
+                                    lambda a, k: True)}.items()}
+            res = sequence_eval.real_sequence_eval(
+                kitti_root=root, max_frames=10, out_dir=out_dir,
+                device=device)
+        res.update(render_s=render_s, launches={
+            k: fn.launches for k, fn in counters.items()},
+            files=[os.path.exists(os.path.join(out_dir, f"traj_kitti00.{x}"
+                                               ".txt")) for x in ("kitti",
+                                                                  "tum")])
+        out["real_sequence_eval"] = res
+        missing = [k for k, v in calls.items() if not v]
+        if missing:
+            raise AssertionError(f"real_sequence_eval: calls not seen: "
+                                 f"{missing}")
+        (pyr, threshold, arc), _ = calls["fast"][0]
+        (raw, blurred, xy, valid, counts), _ = calls["orb"][0]
+        (m, img, kp_xy, slots, want), _ = calls["anchor"][0]
+        cases = dict(
+            fast=(tuple(pyr), threshold, arc),
+            orb=(tuple(raw), tuple(blurred), xy, valid, list(counts)),
+            anchor=dict(img=img, kp_xy=kp_xy, slots=slots, want=want,
+                        capacity=m.capacity, atlas=m.anchor_atlas))
+        del calls, m
+
+        # (c) the EuRoC layout at its widths
+        t0 = time.perf_counter()
+        seq = datasets.save_synthetic_euroc(os.path.join(tmp, "euroc"),
+                                            n_frames=24)
+        render_s = time.perf_counter() - t0
+        gt_c = np.linalg.inv(seq.gt_T_cw)[:, :3, 3]
+        first_left = seq.left[0]
+        h, w = first_left.shape
+        ecfg = euroc_stereo_config()
+        ecfg = dataclasses.replace(   # the writer's camera
+            ecfg, keyframe_every=5, local_ba_every=2,
+            camera=dataclasses.replace(ecfg.camera, fx=435.2, fy=435.2,
+                                       cx=w / 2, cy=h / 2, bf=435.2 * 0.11))
+        _, fig = track(ecfg, seq, seq.gt_T_cw, 4)
+        fig.update(render_s=render_s,
+                   stamp_step_s=float(seq.timestamps[1] - seq.timestamps[0]),
+                   gt_step_m=float(np.linalg.norm(gt_c[1] - gt_c[0])))
+        out["euroc_layout"] = fig
+        del seq
+
+    # (d) undistortion on the card against the CPU
+    radtan = dict(k1=-0.28340811, k2=0.07395907, p1=1.9359e-4,
+                  p2=1.76187114e-5)
+    dcam = dataclasses.replace(ecfg.camera, **radtan)
+    grid = torch.stack(torch.meshgrid(
+        torch.linspace(0, w - 1, 16), torch.linspace(0, h - 1, 16),
+        indexing="xy"), -1).reshape(-1, 2)
+
+    def undistorted(dev):
+        cam = cam_mod.CameraParams.from_config(dcam, dev)
+        return (cam_mod.undistort_image(
+                    cam, torch.from_numpy(first_left).to(dev)).cpu(),
+                cam_mod.undistort_points(cam, grid.to(dev)).cpu())
+    (card_img, card_px), (cpu_img, cpu_px) = (
+        undistorted(device), undistorted(torch.device("cpu")))
+    out["undistort"] = dict(
+        image_max_diff=float((card_img - cpu_img).abs().max()),
+        points_max_diff_px=float((card_px - cpu_px).abs().max()),
+        points_max_shift_px=float((cpu_px - grid).abs().max()))
+
+    # (e) the demo at its defaults, on the card
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    code = demo.main([])
+    out["demo"] = dict(exit_code=code, seconds=time.perf_counter() - t0,
+                       launches={k: fn.launches for k, fn in counters.items()})
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, cases
 
 
 def main():
@@ -1222,6 +1417,63 @@ def main():
     if not mono["ba_calls"] > 0:
         raise AssertionError(f"mono ran no BA: {mono}")
 
+    seqs, seq_cases = sequences_phase(counters, dev, out_dir)
+    sk = seqs["kitti_layout"]
+    log(f"[sequences kitti] {sk['frames']} corridor frames written as KITTI "
+        f"PNGs (1226x370) in {sk['render_s']:.1f} s, decoded exactly "
+        f"{sk['decoded_exactly']} ({2 * sk['frames']} images in "
+        f"{sk['decode_all_s']:.2f} s); StereoVO at the main path's "
+        f"configuration "
+        f"fed by the loader, {sk['timed']} timed: {sk['fps']:.2f} frames/s "
+        f"(the same frames from memory {sk['fps_in_memory']:.2f}, poses "
+        f"equal {sk['poses_equal_in_memory']}), "
+        f"ATE {sk['ate_m']:.5f} m (main path {ba_on['ate_m']:.5f} m), "
+        f"last-frame inliers {sk['last_inliers']}, BA calls {sk['ba_calls']}, "
+        f"launches {sk['launches']}; KITTI/TUM export round trip max |diff| "
+        f"{sk['export_max_diff']:.2e}")
+    if not (sk["decoded_exactly"] and sk["poses_equal_in_memory"]
+            and sk["launches"] == launches
+            and sk["ate_m"] < 0.05 and sk["last_inliers"] > 500
+            and sk["finite"] and sk["export_max_diff"] < 1e-5):
+        raise AssertionError(f"sequences kitti failed its gates: {sk}")
+    sr = seqs["real_sequence_eval"]
+    log(f"[sequences real_sequence_eval] {sr['dataset']}, {sr['frames']} "
+        f".npy plane frames 1226x370 written in {sr['render_s']:.1f} s, at "
+        f"kitti_stereo_config (1241x376 intrinsics, 5-level ORB): "
+        f"{sr['fps']:.2f} frames/s, ATE {sr['ate_rmse_m']:.5f} m, launches "
+        f"{sr['launches']}, trajectory files written {sr['files']}")
+    if not (sr["dataset"] == "kitti00" and sr["frames"] == 10
+            and sr["ate_rmse_m"] < 0.05 and all(sr["files"])):
+        raise AssertionError(f"real_sequence_eval failed its gates: {sr}")
+    gate_launches("real_sequence_eval", sr["launches"], tuple(counters))
+    se = seqs["euroc_layout"]
+    log(f"[sequences euroc] {se['frames']} corridor frames written in the "
+        f"EuRoC layout (752x480) in {se['render_s']:.1f} s, stamps "
+        f"{se['stamp_step_s']:.9f} s apart, ground-truth step "
+        f"{se['gt_step_m']:.4f} m; StereoVO at euroc_stereo_config, "
+        f"{se['timed']} timed: {se['fps']:.2f} frames/s, ATE "
+        f"{se['ate_m']:.5f} m, last-frame inliers {se['last_inliers']}, "
+        f"BA calls {se['ba_calls']}, launches {se['launches']}")
+    if not (abs(se["stamp_step_s"] - 0.05) < 1e-6
+            and 0.04 < se["gt_step_m"] < 0.12 and se["ate_m"] < 0.03
+            and se["finite"]):
+        raise AssertionError(f"sequences euroc failed its gates: {se}")
+    gate_launches("sequences euroc", se["launches"], tuple(counters))
+    su = seqs["undistort"]
+    log(f"[sequences undistort] EuRoC cam0 radtan: undistort_image of the "
+        f"first EuRoC frame on the card against the CPU max |diff| "
+        f"{su['image_max_diff']:.2e}, undistort_points on a 16x16 grid "
+        f"{su['points_max_diff_px']:.2e} px (largest shift "
+        f"{su['points_max_shift_px']:.1f} px)")
+    if not (su["image_max_diff"] <= 1e-3 and su["points_max_diff_px"] <= 1e-4):
+        raise AssertionError(f"undistortion: card differs from CPU: {su}")
+    sd = seqs["demo"]
+    log(f"[sequences demo] demo.main([]) exit {sd['exit_code']} in "
+        f"{sd['seconds']:.1f} s, launches {sd['launches']}; the phase took "
+        f"{seqs['seconds']:.1f} s")
+    if sd["exit_code"] != 0:
+        raise AssertionError(f"the demo failed: {sd}")
+
     c = check_fast(*indirect_cases["fast"], where="indirect last frame")[0]
     fast_cases.append(c)
     log("[check] fast_score_nms exact on "
@@ -1236,6 +1488,22 @@ def main():
         f"{c['plain_ms']:.3f} ms)")
     c = check_anchor_cells(indirect_cases["anchor"],
                            where="indirect last keyframe")[0]
+    anchor_cases.append(c)
+    log(f"[check] anchor_cells exact on {c['case']} ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms)")
+    where = "KITTI real_sequence_eval last keyframe"
+    c = check_fast(*seq_cases["fast"], where=where)[0]
+    fast_cases.append(c)
+    log("[check] fast_score_nms exact on "
+        + ", ".join(f"{lv['shape'][0]}x{lv['shape'][1]}" for lv in c["levels"])
+        + f" ({c['case']}; {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms)")
+    c = check_orb_describe(seq_cases["orb"], where=where)[0]
+    orb_cases.append(c)
+    log(f"[check] orb_describe on {c['case']}, N={c['n']} ({c['valid']} "
+        f"valid): max |d angle| {c['max_abs_err']:.2e} rad, bins agree "
+        f"{c['bins_agree']:.5f}, descriptors exact ({c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.3f} ms)")
+    c = check_anchor_cells(seq_cases["anchor"], where=where)[0]
     anchor_cases.append(c)
     log(f"[check] anchor_cells exact on {c['case']} ({c['ms']:.4f} ms, plain "
         f"{c['plain_ms']:.3f} ms)")
@@ -1260,7 +1528,10 @@ def main():
              **{f"indirect_{s}": fig["launches"]
                 for s, fig in indirect.items()
                 if s not in ("render_s", "vocabulary")},
-             "mono": mono["launches"]}
+             "mono": mono["launches"],
+             "sequences_kitti": sk["launches"],
+             "sequences_real_sequence_eval": sr["launches"],
+             "sequences_euroc": se["launches"], "demo": sd["launches"]}
 
     def entry(name, source, replaces, primary, cases):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1293,6 +1564,7 @@ def main():
               "photometric": photometric,
               "loop_bench": dict(loop, jax_record=LOOP_RECORD),
               "direct": direct, "indirect": indirect, "mono": mono,
+              "sequences": seqs,
               "seconds": time.perf_counter() - t_start}
     log(f"[time] the whole script took {result['seconds']:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -1,8 +1,10 @@
 """Pinhole camera with radial-tangential distortion, batched over points.
 
-Port of trackingbench_slam_tpu/geometry/camera.py (the parts the stereo-VO
-main path uses). Parameters are 0-d float32 tensors on the pipeline's device,
-so every product is taken in float32 as in the reference.
+Port of trackingbench_slam_tpu/geometry/camera.py. Parameters are 0-d
+float32 tensors on the pipeline's device, so every product is taken in
+float32 as in the reference. Undistortion (`undistort_points`,
+`undistort_map`, `undistort_image`) is plain PyTorch, as it is plain XLA in
+the reference.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from trackingbench_slam_tpu_torch.ops.image import bilinear_sample
 from trackingbench_slam_tpu_torch.utils.config import CameraConfig
 
 
@@ -70,6 +73,37 @@ def cam2world(cam: CameraParams, px: torch.Tensor) -> torch.Tensor:
     xy = undistort_normalized(cam, torch.stack([x, y], dim=-1))
     v = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def undistort_points(cam: CameraParams, px: torch.Tensor) -> torch.Tensor:
+    """Distorted pixels (..., 2) -> undistorted pixels (reference
+    CameraModel.cpp:104-121)."""
+    x = (px[..., 0] - cam.cx) / cam.fx
+    y = (px[..., 1] - cam.cy) / cam.fy
+    xy = undistort_normalized(cam, torch.stack([x, y], dim=-1))
+    return torch.stack([cam.fx * xy[..., 0] + cam.cx,
+                        cam.fy * xy[..., 1] + cam.cy], dim=-1)
+
+
+def undistort_map(cam: CameraParams, height: int, width: int) -> torch.Tensor:
+    """(H, W, 2) float32: for each undistorted output pixel, the distorted
+    source coordinate (x, y) to sample; the reference's
+    cv::initUndistortRectifyMap table (CameraModel.cpp:14-27)."""
+    f32 = dict(dtype=torch.float32, device=cam.fx.device)
+    v, u = torch.meshgrid(torch.arange(height, **f32),
+                          torch.arange(width, **f32), indexing="ij")
+    xy = distort_normalized(cam, torch.stack([(u - cam.cx) / cam.fx,
+                                              (v - cam.cy) / cam.fy], dim=-1))
+    return torch.stack([cam.fx * xy[..., 0] + cam.cx,
+                        cam.fy * xy[..., 1] + cam.cy], dim=-1)
+
+
+def undistort_image(cam: CameraParams, img: torch.Tensor) -> torch.Tensor:
+    """The undistorted (H, W) float32 image: one bilinear gather through
+    `undistort_map` (cv::remap, CameraModel.cpp:96-102); taps outside the
+    image read 0."""
+    h, w = img.shape
+    return bilinear_sample(img.float(), undistort_map(cam, h, w))
 
 
 def is_in_frame(cam: CameraParams, px: torch.Tensor,

@@ -1,8 +1,9 @@
 """FrameState: fixed-capacity struct of tensors for one image.
 
 Port of trackingbench_slam_tpu/models/frame.py (make_frame, with_keypoints,
-is_in_frustum). Field names and layouts are the reference's; descriptors are
-(N, 8) int32 words with the reference's uint32 bits.
+add_keypoints, is_in_frustum). Field names and layouts are the
+reference's; descriptors are (N, 8) int32 words with the reference's uint32
+bits.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
 from trackingbench_slam_tpu_torch.geometry import se3
+from trackingbench_slam_tpu_torch.models.map import free_slot_destinations
+from trackingbench_slam_tpu_torch.ops import packing
 from trackingbench_slam_tpu_torch.ops.image import build_pyramid
 
 
@@ -76,6 +79,29 @@ def with_keypoints(frame: FrameState, cam: cam_mod.CameraParams,
         kp_response=kp_response, desc=desc, valid=valid, bearing=bearing,
         map_idx=torch.where(valid, frame.map_idx,
                             torch.full_like(frame.map_idx, -1)))
+
+
+def add_keypoints(frame: FrameState, cam: cam_mod.CameraParams,
+                  kp_xy, kp_level, kp_response, map_idx,
+                  new_valid) -> FrameState:
+    """Masked insertion of aligned features into free slots (Frame::AddKey,
+    Frame.cpp:139-163, used by the direct matcher's FeaturesAlign at
+    matcher.cpp:1610-1617): the r-th new keypoint goes to the r-th free
+    slot, so no two rows share a destination; those past the free count
+    are dropped. Angles of the new rows are 0."""
+    dest = free_slot_destinations(~frame.valid, new_valid)
+    n = kp_xy.shape[0]
+    dev = kp_xy.device
+    (xy, level, angle, response, bearing, midx,
+     valid) = packing.scatter_rows_set(
+        [frame.kp_xy, frame.kp_level, frame.kp_angle, frame.kp_response,
+         frame.bearing, frame.map_idx, frame.valid], dest,
+        [kp_xy, kp_level, torch.zeros((n,), dtype=torch.float32, device=dev),
+         kp_response, cam_mod.cam2world(cam, kp_xy), map_idx,
+         torch.ones((n,), dtype=torch.bool, device=dev)])
+    return frame._replace(kp_xy=xy, kp_level=level, kp_angle=angle,
+                          kp_response=response, bearing=bearing,
+                          map_idx=midx, valid=valid)
 
 
 def is_in_frustum(frame: FrameState, cam: cam_mod.CameraParams,

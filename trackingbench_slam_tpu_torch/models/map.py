@@ -1,10 +1,9 @@
 """MapState / KeyframeStore: fixed-capacity map tables as tensors.
 
-Port of the parts of trackingbench_slam_tpu/models/map.py that the stereo-VO
-track and keyframe steps use. The layouts are the reference's, including the
-per-landmark obs_desc (M, K, 8) table and the anchor-patch atlas of 16-px
-cells (2048 x 2048 at 16384 points). Descriptors are int32 words with the
-reference's uint32 bits.
+Port of trackingbench_slam_tpu/models/map.py. The layouts are the
+reference's, including the per-landmark obs_desc (M, K, 8) table and the
+anchor-patch atlas of 16-px cells (2048 x 2048 at 16384 points).
+Descriptors are int32 words with the reference's uint32 bits.
 
 Updates return new tensors (the tables are cloned by the indexed writes),
 as the reference's functional updates do. The reference writes the atlas
@@ -240,6 +239,14 @@ def add_observations(m: MapState, point_idx, kf_slot, feat_idx, want,
                       obs_count=obs_count)
 
 
+def erase_points(m: MapState, point_idx, want) -> MapState:
+    """SetBadFlag (MapPoint.cpp:139-160): the wanted landmarks die. A
+    repeated index writes the same False, so any writer gives the same
+    table."""
+    pi = torch.where(want, point_idx, torch.full_like(point_idx, m.capacity))
+    return m._replace(valid=_set_rows(m.valid, pi, False))
+
+
 def replace_points(m: MapState, old_idx, new_idx, want):
     """MapPoint::Replace: victims die, their visible/found counts merge into
     the keepers. Returns (map, redirect (capacity + 1,))."""
@@ -265,6 +272,16 @@ def increase_visible(m: MapState, point_idx, want) -> MapState:
 def increase_found(m: MapState, point_idx, want) -> MapState:
     pi = torch.where(want, point_idx, torch.full_like(point_idx, m.capacity))
     return m._replace(n_found=_add_rows(m.n_found, pi, 1))
+
+
+def add_reproj_failures(m: MapState, point_idx, failed,
+                        evict_after: int = 30) -> MapState:
+    """The direct matcher's failure count, and eviction of landmarks that
+    failed more than `evict_after` reprojections (matcher.cpp:1044-1051).
+    Counted with an integer add, exact in any order of writes."""
+    pi = torch.where(failed, point_idx, torch.full_like(point_idx, m.capacity))
+    nf = _add_rows(m.n_fail_reproj, pi, 1)
+    return m._replace(n_fail_reproj=nf, valid=m.valid & (nf <= evict_after))
 
 
 def purge_kf_slot(m: MapState, kf_slot, want) -> MapState:
@@ -333,6 +350,28 @@ def compute_distinctive_descriptors(m: MapState, kfs=None) -> MapState:
     chosen = descs[torch.arange(M, device=descs.device), best]
     has_obs = obs_ok.any(-1) & m.valid
     return m._replace(desc=torch.where(has_obs[:, None], chosen, m.desc))
+
+
+def get_close_view_obs(m: MapState, kfs: KeyframeStore, cam_center_w):
+    """Per landmark, the observation whose viewing direction is closest to
+    the current camera's (MapPoint::GetCloseViewObs, MapPoint.cpp:373-393;
+    cos > 0.5 gate); a tie goes to the first column, as jnp.argmax.
+    Returns (kf_slot (M,), feat_idx (M,), ok (M,))."""
+    kf_idx = m.obs_kf.clamp(0, kfs.T_cw.shape[0] - 1).long()
+    obs_ok = m.obs_kf >= 0
+    centers = se3.inverse(kfs.T_cw)[:, :3, 3][kf_idx]   # (M, K, 3)
+    cur_dir = m.pos - cam_center_w[None, :]
+    cur_dir = cur_dir / torch.clamp(torch.linalg.norm(
+        cur_dir, dim=-1, keepdim=True), min=1e-9)
+    obs_dir = m.pos[:, None, :] - centers
+    obs_dir = obs_dir / torch.clamp(torch.linalg.norm(
+        obs_dir, dim=-1, keepdim=True), min=1e-9)
+    cos = (obs_dir * cur_dir[:, None, :]).sum(-1)
+    cos = torch.where(obs_ok, cos, torch.full_like(cos, -2.0))
+    best = torch.argmax(cos, dim=-1, keepdim=True)
+    ok = ((cos.gather(1, best)[:, 0] > 0.5) & m.valid & obs_ok.any(-1))
+    return (m.obs_kf.gather(1, best)[:, 0], m.obs_feat.gather(1, best)[:, 0],
+            ok)
 
 
 def predict_scale(m: MapState, dist, scale_factor: float, num_levels: int):

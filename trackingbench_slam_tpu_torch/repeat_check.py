@@ -1,28 +1,33 @@
-"""Does the loop bench repeat? The closer-less loop bench run several times
-in one process on the same frames, compared frame by frame.
+"""Does the loop bench repeat? The loop bench run several times in one
+process on the same frames, compared frame by frame.
 
     python3 -m trackingbench_slam_tpu_torch.repeat_check [--runs 2]
-        [--deterministic] [--op-log] [--frames-cache PATH] [--label NAME]
+        [--closer] [--deterministic] [--op-log] [--frames-cache PATH]
+        [--label NAME]
 
 Per run it keeps every frame's pose and, after every frame, one float64
 sum per VOState leaf (the leaves of utils/convert.py's numpy view, in its
 order), reduced on the device and fetched at the end. Runs after the first
 are compared with it: the first frame whose pose is not torch.equal, the
 first frame whose state differs and the leaves that differ there, and the
-closing error of each run. With --op-log every ATen op's outputs are
-summed too in the runs after the first (a TorchDispatchMode; factory ops
-that return uninitialised memory, and outputs on the host, are skipped),
-and the second and third
-runs are compared op by op, which names the first op whose output differs
-(the first run fills the caches and warms up, so its op sequence is not
-compared).
+closing error of each run. Without --closer the runs track with no loop
+closer; with it each run attaches bench.py's LoopCloser(voc, cam,
+min_score=0.015, min_inliers=40, exclude_recent=5), all on one vocabulary
+trained once (`train_vocabulary`), and the frames at which loops closed and
+tracking relocalized are compared too. With --op-log every ATen op's
+outputs are summed too in the runs after the first (a TorchDispatchMode;
+factory ops that return uninitialised memory, and outputs on the host, are
+skipped), and the second and third runs are compared op by op, which
+names the first op whose output differs (the first run fills the caches
+and warms up, so its op sequence is not compared).
 --deterministic runs under torch.use_deterministic_algorithms(True,
 warn_only=True) and prints the ops that warned. The loop bench's 96 frames
 take minutes to render: --frames-cache keeps them in an .npz for the next
 process. Results go to chiprun_out/repeat_check_<label>.json.
 
-Uses only StereoVO, the corridor and the converter, so it also runs against
-an older checkout of the package (copy this file into it).
+Uses only StereoVO, the loop closer, the vocabulary and the corridor, so it
+also runs against an older checkout of the package (copy this file into
+it).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 import warnings
@@ -54,6 +60,28 @@ def frames_cached(cfg, n, path):
                  **{f"right_{i}": f[1] for i, f in enumerate(frames)
                     if f[1] is not None})
     return frames, gt
+
+
+def train_vocabulary(cfg, frames, device, every=12):
+    """bench.py's in-domain vocabulary: ORB of every `every`-th left image,
+    the first 4000 valid descriptors, k = 6, L = 3, seed 0. Returns
+    (vocabulary, descriptors used)."""
+    import torch
+    from trackingbench_slam_tpu_torch.bow import vocabulary as bow
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.models.extractors import extract_orb
+    from trackingbench_slam_tpu_torch.models.frame import make_frame
+    cam = cam_mod.CameraParams.from_config(cfg.camera, device)
+    descs = []
+    for i in range(0, len(frames), every):
+        f = make_frame(torch.from_numpy(frames[i][0]).to(device),
+                       cfg.extractor.num_features, cfg.pyramid.num_levels,
+                       cfg.pyramid.scale_factor)
+        f = extract_orb(f, cam, cfg.extractor, cfg.pyramid)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    descs = np.concatenate(descs)[:4000]
+    return bow.train(descs, branching=6, depth=3, seed=0,
+                     device=device), len(descs)
 
 
 def named_leaves(state):
@@ -109,10 +137,14 @@ def op_logger(device):
     return OpLog()
 
 
-def one_run(cfg, frames, device, op_log: bool):
+def one_run(cfg, frames, device, op_log: bool, voc=None):
     import torch
+    from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
     from trackingbench_slam_tpu_torch.models.vo import StereoVO
     vo = StereoVO(cfg, device=device)
+    if voc is not None:
+        vo.loop_closer = LoopCloser(voc, vo.cam, min_score=0.015,
+                                    min_inliers=40, exclude_recent=5)
     digests, names, op_frames = [], None, []
     t0 = time.perf_counter()
     for left, right in frames:
@@ -132,7 +164,8 @@ def one_run(cfg, frames, device, op_log: bool):
     traj = torch.stack(vo.trajectory).cpu()
     return dict(traj=traj, digests=torch.stack(digests).cpu().numpy(),
                 names=names, poses=vo.poses(), ops=op_frames,
-                seconds=seconds)
+                seconds=seconds, loop_events=list(vo.loop_events),
+                reloc_events=list(vo.reloc_events))
 
 
 def _differ(x, y):
@@ -148,7 +181,11 @@ def compare(a, b):
     differ = _differ(a["digests"], b["digests"])
     state_frame = next((i for i in range(n) if differ[i].any()), None)
     out = dict(first_pose_frame=pose_frame, first_state_frame=state_frame,
-               identical=pose_frame is None and state_frame is None,
+               identical=(pose_frame is None and state_frame is None
+                          and a["loop_events"] == b["loop_events"]
+                          and a["reloc_events"] == b["reloc_events"]),
+               loop_events=[a["loop_events"], b["loop_events"]],
+               reloc_events=[a["reloc_events"], b["reloc_events"]],
                max_pose_diff=float((a["traj"] - b["traj"]).abs().max()))
     if state_frame is not None:
         out["leaves_differing"] = [a["names"][j] for j in
@@ -175,6 +212,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--frames", type=int, default=96)
+    ap.add_argument("--closer", action="store_true",
+                    help="attach bench.py's LoopCloser to every run")
     ap.add_argument("--deterministic", action="store_true")
     ap.add_argument("--op-log", action="store_true")
     ap.add_argument("--frames-cache", default="")
@@ -212,17 +251,25 @@ def main(argv=None):
     t0 = time.perf_counter()
     frames, gt = frames_cached(cfg, args.frames, args.frames_cache)
     render_s = time.perf_counter() - t0
+    voc = train_vocabulary(cfg, frames, device)[0] if args.closer else None
     runs = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for k in range(args.runs):
-            runs.append(one_run(cfg, frames, device, args.op_log and k > 0))
+            runs.append(one_run(cfg, frames, device, args.op_log and k > 0,
+                                voc))
     warned = sorted({str(w.message).split("\n")[0][:160] for w in caught
                      if "deterministic" in str(w.message)})
-    result = dict(label=args.label, deterministic=args.deterministic,
+    result = dict(label=args.label, closer=args.closer,
+                  deterministic=args.deterministic,
                   op_log=args.op_log, frames=args.frames, render_s=render_s,
                   device=(torch.cuda.get_device_name(0)
                           if device.type == "cuda" else "cpu"),
+                  nvidia_smi=(subprocess.run(
+                      ["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True, timeout=60).stdout.strip()
+                      if device.type == "cuda" else None),
                   closing_err_m=[closing_error(r["poses"], gt) for r in runs],
                   run_s=[r["seconds"] for r in runs],
                   against_first=[compare(runs[0], r) for r in runs[1:]],

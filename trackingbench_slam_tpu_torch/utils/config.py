@@ -231,6 +231,18 @@ class PipelineConfig:
         return build(cls, json.loads(s))
 
 
+def kitti_stereo_config() -> PipelineConfig:
+    """KITTI odometry gray operating point (reference test_kitti,
+    test/test_vo.cpp:613-872: fx=fy=718.856 cx=607.19 cy=185.22,
+    bf=0.573*718.856)."""
+    cam = CameraConfig(
+        width=1241, height=376,
+        fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
+        bf=0.573 * 718.856,
+    )
+    return PipelineConfig(camera=cam)
+
+
 def euroc_stereo_config() -> PipelineConfig:
     """EuRoC MH operating point (reference test_vo_1, test/test_vo.cpp:
     109-296), where the indirect tracker runs."""

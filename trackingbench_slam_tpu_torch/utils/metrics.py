@@ -1,9 +1,9 @@
-"""Trajectory evaluation: ATE-RMSE with Umeyama alignment.
+"""Trajectory evaluation: ATE-RMSE with Umeyama alignment, RPE.
 
 The reference only ever prints estimated vs ground-truth poses for a human to
 eyeball (test/test_vo.cpp:763-764); this module is the quantitative protocol
 (the standard TUM/KITTI ATE definition) used by the benchmark harness.
-A copy of the ATE part of trackingbench_slam_tpu/utils/metrics.py.
+A copy of trackingbench_slam_tpu/utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -52,3 +52,15 @@ def ate_rmse(est_cw: np.ndarray, gt_cw: np.ndarray,
     err = np.linalg.norm(p_est - p_gt, axis=1)
     return float(np.sqrt((err ** 2).mean()))
 
+
+
+def rpe_translation(est_cw: np.ndarray, gt_cw: np.ndarray,
+                    delta: int = 1) -> float:
+    """Relative pose error (translation RMSE) over `delta`-frame intervals."""
+    errs = []
+    for i in range(len(est_cw) - delta):
+        de = np.linalg.inv(est_cw[i]) @ est_cw[i + delta]
+        dg = np.linalg.inv(gt_cw[i]) @ gt_cw[i + delta]
+        e = np.linalg.inv(dg) @ de
+        errs.append(np.linalg.norm(e[:3, 3]))
+    return float(np.sqrt(np.mean(np.square(errs))))

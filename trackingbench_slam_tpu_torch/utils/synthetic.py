@@ -1,7 +1,8 @@
 """Synthetic stereo sequences with exact ground truth.
 
-A copy of the corridor renderer, three trajectories (forward with yaw,
-the closed loop, lateral) and `photometric_stress` of
+A copy of the textured plane and its PlaneSequence renderer, the corridor
+renderer, three trajectories (forward with yaw, the closed loop, lateral)
+and `photometric_stress` of
 trackingbench_slam_tpu/utils/synthetic.py, so that this package renders the
 same frames without importing the JAX package.
 
@@ -20,6 +21,82 @@ import dataclasses
 import numpy as np
 
 from trackingbench_slam_tpu_torch.utils.config import CameraConfig
+
+
+def textured_plane(h: int, w: int, seed: int = 5, blobs: int = 600,
+                   margin: float = 2.0) -> np.ndarray:
+    """Big textured canvas (margin x view size) so warps never sample off the
+    texture. Smoothed so bilinear warps behave like real images."""
+    H, W = int(h * margin), int(w * margin)
+    r = np.random.RandomState(seed)
+    img = 80.0 + 50.0 * np.outer(np.linspace(0, 1, H), np.linspace(0, 1, W))
+    for _ in range(blobs):
+        y = r.randint(5, H - 20)
+        x = r.randint(5, W - 20)
+        bh = r.randint(3, 16)
+        bw = r.randint(3, 16)
+        img[y:y + bh, x:x + bw] = r.randint(10, 245)
+    # light smoothing (box blur twice)
+    k = np.ones(3) / 3.0
+    img = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), 0, img)
+    img = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), 1, img)
+    return img.astype(np.float32)
+
+
+def _plane_rays(cfg: CameraConfig, T_cw: np.ndarray, depth: float):
+    """Each pixel's world-frame ray, the camera centre, and the ray
+    parameter where it meets the plane z = depth."""
+    ys, xs = np.mgrid[0:cfg.height, 0:cfg.width].astype(np.float64)
+    xn = (xs - cfg.cx) / cfg.fx
+    yn = (ys - cfg.cy) / cfg.fy
+    rays = np.stack([xn, yn, np.ones_like(xn)], axis=-1)  # camera frame
+    T_wc = np.linalg.inv(T_cw)
+    c = T_wc[:3, 3]
+    d_w = rays @ T_wc[:3, :3].T
+    # intersect with plane z = depth: c_z + t*d_z = depth
+    return d_w, c, (depth - c[2]) / d_w[..., 2]
+
+
+@dataclasses.dataclass
+class PlaneSequence:
+    """Renders views of the plane z = depth (world frame) for camera poses
+    T_cw (world->camera). The canvas is the plane's texture sampled at
+    fx / depth px per meter centered on the optical axis of the identity
+    pose."""
+
+    cam: CameraConfig
+    depth: float = 8.0
+    seed: int = 5
+
+    def __post_init__(self):
+        self.canvas = textured_plane(self.cam.height, self.cam.width,
+                                     seed=self.seed)
+        ch, cw = self.canvas.shape
+        self.px_per_m = self.cam.fx / self.depth  # identity-view sampling
+        self.c0 = np.array([cw / 2, ch / 2])
+
+    def render(self, T_cw: np.ndarray) -> np.ndarray:
+        """The view for world->camera pose T_cw by inverse warping: each
+        pixel's ray meets the plane z = depth, where the canvas is
+        sampled."""
+        h, w = self.cam.height, self.cam.width
+        d_w, c, t = _plane_rays(self.cam, T_cw, self.depth)
+        pts = c[None, None, :] + t[..., None] * d_w
+        uv = pts[..., :2].reshape(-1, 2) * self.px_per_m + self.c0[None, :]
+        out = _bilinear_np(self.canvas, uv).reshape(h, w)
+        out[(t <= 0.1).reshape(h, w)] = 0.0
+        return out.astype(np.float32)
+
+    def stereo_pair(self, T_cw: np.ndarray, baseline: float):
+        """Left + right images for a rectified pair (right camera offset by
+        +baseline along the camera x axis)."""
+        shift = np.eye(4)
+        shift[0, 3] = -baseline
+        return self.render(T_cw), self.render(shift @ T_cw)
+
+    def depth_map(self, T_cw: np.ndarray) -> np.ndarray:
+        """Exact per-pixel depth (z in the camera frame) of the view."""
+        return _plane_rays(self.cam, T_cw, self.depth)[2].astype(np.float32)
 
 
 def _bilinear_np(img: np.ndarray, uv: np.ndarray) -> np.ndarray:
