@@ -89,7 +89,26 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      and the first frame's stereo LK (4 levels + back-track), and from
      (b) the last keyframe's FAST over the 5-level 1226x370 pyramid, its
      ORB describe and its anchor cells;
-  14. a `kernels` JSON line (launches on every path), the script's seconds,
+  14. batched and distributed (parallel/): 8 sequences cut from the main
+     path's frames (rights rendered where missing), bootstrapped serially,
+     then 3 batched track steps and one batched track-and-keyframe step
+     (dp_eval) held to serial runs within 1e-5; one batched keyframe
+     step with a fresh sequence beside 7 tracked ones (both sides of the
+     stereo-prior branch kept) held to serial keyframe steps on the right
+     image's u of the rows whose keypoint both runs share (flags >= 99%,
+     within 1e-3 px, >= 50 rows a sequence); hand-kernel launches of a
+     batched step equal to a serial step's (the keyframe step one stereo
+     LK more: both sides of the stereo-prior branch run); CUDA kernels of a
+     batched track step <= 1.5x the B = 1 step's (torch.profiler); bench.py
+     dp_eval_bench's B1 and B8 sequence-frames/s; every batched kernel call
+     against its plain version per sequence as in phase 3 (the anchor
+     cells on the atlases from before the step's launch, and the atlases
+     that launch left); BA iterations/s with benchmarks/ba_scaling.py's
+     protocol (4 windows of 4096 x 16 x 16, (t(12) - t(2)) / 10), the
+     median of 11 readings, one-device and distributed on a world of one
+     over NCCL, alternating; both distributed solves against bundle_adjust_grouped /
+     bundle_adjust: poses and points within 5e-4;
+  15. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -112,6 +131,12 @@ LOOP_FRAMES = 96
 WARM_FRAMES = 11
 WARM_DIRECT = 4
 WARM_MONO = 4
+BATCH = 8               # sequences of the batched phase
+BATCH_TRACK_STEPS = 3   # batched track steps held to serial runs
+DP_STEPS = 16           # bench.py:512-545 dp_eval_bench's timed steps
+BA_REPS = 4             # benchmarks/ba_scaling.py's pre-uploaded windows
+BA_SWEEPS = 11          # readings of each BA solve's iterations/s
+BA_WINDOW = dict(landmarks=4096, keyframes=16, obs=16)   # and their size
 BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
                    "anchor_cells": 9}
 # the JAX package's loop-bench accuracy record (BENCH_r05.json)
@@ -239,6 +264,13 @@ def lk_bytes(work, n, half, fb, offset):
     return 4 * px + inputs + n * (13 + (5 if fb else 0))
 
 
+def lk_terms(work, n, kw):
+    """(bytes, operations) of an LK call from its work (lk_work)."""
+    return (lk_bytes(work, n, kw["half"], kw.get("fb_iters", 0) > 0,
+                     kw.get("offset") is not None),
+            lk_flops(work, kw["half"]))
+
+
 def check_fast(pyr, threshold, arc, where="main path"):
     """The batched launch over the ORB pyramid, exact on every level."""
     import torch
@@ -273,14 +305,16 @@ def orb_ops_per_point():
     return 4 * int(orb._circle_umax_mask().sum()) + 20 + 6 + 2 * 256
 
 
-def orb_describe_agreement(raw, blurred, xy, valid, counts):
-    """Kernel against plain on one call; returns (max wrapped angle error
-    over valid rows, share of valid rows whose angle bins agree)."""
+def orb_describe_agreement(raw, blurred, xy, valid, counts, got=None):
+    """Kernel against plain on one call (or on the kernel's output `got` of
+    these inputs); returns (max wrapped angle error over valid rows, share
+    of valid rows whose angle bins agree)."""
     import torch
     from trackingbench_slam_tpu_torch.ops import orb
     from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
     args = (raw, blurred, xy, valid, counts)
-    got_a, got_d = patch_kernel.orb_describe_cuda(*args)
+    got_a, got_d = patch_kernel.orb_describe_cuda(*args) if got is None \
+        else got
     ref_a, ref_d = patch_kernel.orb_describe_plain(*args)
     torch.cuda.synchronize()
     d = torch.remainder(got_a - ref_a + torch.pi, 2 * torch.pi) - torch.pi
@@ -304,6 +338,34 @@ def orb_describe_agreement(raw, blurred, xy, valid, counts):
     return err, bins_agree
 
 
+def orb_terms(raw, xy, valid, counts):
+    """(bytes, operations) an ORB describe call needs: the two crops of
+    every valid point, the table, the point I/O."""
+    from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
+    px = 0
+    for img, p, v in zip(raw, xy.split(counts), valid.split(counts)):
+        r0, c0 = patch_kernel.patch_origins(p[v], *img.shape)
+        px += covered_pixels(img.shape, [(r0, c0, patch_kernel.PATCH)])
+    table = patch_kernel.brief_pairs(xy.device)
+    return (2 * 4 * px + xy.shape[0] * (8 + 1 + 4 + 32)
+            + table.numel() * table.element_size(),
+            int(valid.sum()) * orb_ops_per_point())
+
+
+def cells_terms(img, kp_xy, slots, want, cap):
+    """(bytes, operations) an anchor-cell call needs: each wanted cell's
+    17x17 source block, its 16x16 cell written, the point I/O."""
+    import torch
+    from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
+    c = patch_kernel.CELL
+    ok = want & (slots >= 0) & (slots < cap)
+    n, n_ok = kp_xy.shape[0], int(ok.sum())
+    r0, c0 = patch_kernel.patch_origins(torch.floor(kp_xy[ok]) + 7.0,
+                                        *img.shape)
+    px = covered_pixels(img.shape, [(r0, c0, c + 1)])
+    return 4 * px + n_ok * c * c * 4 + n * (8 + 4 + 1), n_ok * (c * c * 9 + 4)
+
+
 def check_orb_describe(case, where="main path bootstrap keyframe"):
     """One extraction's describe in one launch for all levels; and the same
     call with every 7th row invalid (the main path's bootstrap has none,
@@ -318,15 +380,8 @@ def check_orb_describe(case, where="main path bootstrap keyframe"):
     orb_describe_agreement(raw, blurred, xy, holes, counts)
     ms, host_ms = time_ms(lambda: patch_kernel.orb_describe_cuda(*args), 50)
     plain_ms, _ = time_ms(lambda: patch_kernel.orb_describe_plain(*args), 10)
-    px = 0
-    for img, p, v in zip(raw, xy.split(counts), valid.split(counts)):
-        r0, c0 = patch_kernel.patch_origins(p[v], *img.shape)
-        px += covered_pixels(img.shape, [(r0, c0, patch_kernel.PATCH)])
     n, n_valid = xy.shape[0], int(valid.sum())
-    table = patch_kernel.brief_pairs(xy.device)
-    b, by = bound(2 * 4 * px + n * (8 + 1 + 4 + 32)
-                  + table.numel() * table.element_size(),
-                  n_valid * orb_ops_per_point())
+    b, by = bound(*orb_terms(raw, xy, valid, counts))
     return [dict(case=f"{where}: {len(raw)}-level ORB describe, one launch",
                  shapes=[list(img.shape) for img in raw], n=n,
                  valid=n_valid, counts=list(counts), bins_agree=bins_agree,
@@ -378,11 +433,7 @@ def check_anchor_cells(case, where="bootstrap keyframe"):
     library_ms, _ = time_ms(library, 50)
     cells = patch_kernel.bilinear_cell_patches(img, kp_xy)[ok]
     library_diff = float((library().reshape(n_ok, c, c) - cells).abs().max())
-    x0 = torch.floor(kp_xy[ok])
-    r0, c0 = patch_kernel.patch_origins(x0 + 7.0, h, w)
-    px = covered_pixels(img.shape, [(r0, c0, c + 1)])
-    b, by = bound(4 * px + n_ok * c * c * 4 + n * (8 + 4 + 1),
-                  n_ok * (c * c * 9 + 4))
+    b, by = bound(*cells_terms(img, kp_xy, slots, want, cap))
     return [dict(case=f"{where}, N={n}, {n_ok} cells into a "
                       f"{atlas.shape[0]}^2 atlas",
                  n=n, cells=n_ok, max_abs_err=err, ms=ms, host_ms=host_ms,
@@ -423,9 +474,7 @@ def check_lk(cases):
         plain_ms, _ = time_ms(lambda: lk_kernel.lk_align_plain(*args, **kw),
                               3)
         work = lk_work(*args, kw)
-        b, by = bound(lk_bytes(work, n, kw["half"], fb,
-                               kw.get("offset") is not None),
-                      lk_flops(work, kw["half"]))
+        b, by = bound(*lk_terms(work, n, kw))
         out.append(dict(case=name, levels=len(prev), shape=list(cur[0].shape),
                         n=n, launches_per_call=launches,
                         converged=int(ref[1].sum()), flags_agree=agree,
@@ -593,16 +642,22 @@ def loop_bench(cfg, frames, gt, counters, device):
 
 
 @contextlib.contextmanager
-def watched(module, name, pick, last=False):
+def watched(module, name, pick, last=False, every=False, keep=None):
     """While inside, calls of module.<name> go through unchanged; the
     arguments (args, kwargs) of the first call that `pick` accepts (with
-    `last`, of the last one) are kept in the yielded list."""
+    `last`, of the last one; with `every`, of each, in order) are kept in
+    the yielded list. `keep(args, kwargs)`, where given, is what is kept,
+    taken before the call (to copy an argument the call writes)."""
     real = getattr(module, name)
     kept = []
 
     def call(*args, **kwargs):
-        if pick(args, kwargs) and (last or not kept):
-            kept[:] = [(args, kwargs)]
+        if pick(args, kwargs) and (every or last or not kept):
+            item = (args, kwargs) if keep is None else keep(args, kwargs)
+            if every:
+                kept.append(item)
+            else:
+                kept[:] = [item]
         return real(*args, **kwargs)
 
     setattr(module, name, call)
@@ -1160,6 +1215,564 @@ def sequences_phase(counters, device, out_dir):
     return out, cases
 
 
+def batched_sequences(cfg, frames, gt, scene):
+    """BATCH distinct sequences cut from the main path's rendered frames:
+    sequence b is frames 4b .. 4b + 4, bootstrapped at 4b, tracked over the
+    next BATCH_TRACK_STEPS and keyframed at 4b + 4; the right images those
+    two frames need are rendered where the main path has none."""
+    from trackingbench_slam_tpu_torch.utils.corridor import BASELINE, _u8
+    seqs = []
+    for b in range(BATCH):
+        seq = []
+        for i in range(4 * b, 4 * b + BATCH_TRACK_STEPS + 2):
+            left, right = frames[i]
+            if right is None and i in (4 * b, 4 * b + BATCH_TRACK_STEPS + 1):
+                right = _u8(scene.stereo_pair(gt[i], BASELINE)[1])
+            seq.append((left, right))
+        seqs.append(seq)
+    return seqs
+
+
+def tree_diff(a, b):
+    """The leaves of two states that differ: {path: [entries differing,
+    max |diff| for float leaves]}."""
+    import torch
+    import torch.utils._pytree as pytree
+    fa, _ = pytree.tree_flatten_with_path(a)
+    fb, _ = pytree.tree_flatten(b)
+    out = {}
+    for (path, x), y in zip(fa, fb):
+        ne = x != y
+        if bool(ne.any()):
+            d = (float((x - y).abs().max()) if x.is_floating_point()
+                 else None)
+            out[pytree.keystr(path)] = [int(ne.sum()), d]
+    return out
+
+
+def batched_phase(cfg, frames, gt, scene, counters, device):
+    """Phase 14a: BATCH sequences at the main path's width as one batched
+    program (parallel/dp_eval.py), each bootstrapped serially: batched
+    track steps and one batched track-and-keyframe step held to serial runs
+    within 1e-5, the hand-kernel launches of a batched step against a
+    serial step's, the CUDA kernels of a batched track step against the
+    B = 1 step's, and bench.py's dp_eval_bench (one state broadcast,
+    DP_STEPS steps, fenced) at B = 1 and B = BATCH. Returns (figures,
+    the batched kernel calls recorded)."""
+    import torch
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.models import vo as vo_mod
+    from trackingbench_slam_tpu_torch.ops.cuda import (fast_kernel, lk_kernel,
+                                                       patch_kernel)
+    from trackingbench_slam_tpu_torch.parallel import dp_eval
+    from trackingbench_slam_tpu_torch.utils.device import upload_image
+    t_phase = time.perf_counter()
+    cam = cam_mod.CameraParams.from_config(cfg.camera, device)
+    seqs = batched_sequences(cfg, frames, gt, scene)
+    up = [[tuple(None if x is None else upload_image(x, device) for x in f)
+           for f in seq] for seq in seqs]
+
+    def gens():
+        return [torch.Generator(device=device).manual_seed(b)
+                for b in range(BATCH)]
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        sync(device)
+        return out, {k: c.launches for k, c in counters.items()}
+
+    spent = {}
+    t0 = time.perf_counter()
+    boot = []
+    for seq in up:
+        st = vo_mod.init_state(cfg, seq[0][0])
+        st = vo_mod.keyframe_step(st, seq[0][1], cam, cfg)
+        boot.append(st._replace(frame_id=st.frame_id + 1))
+    # serial runs, one sequence at a time, with its own generator
+    serial_track, serial_kf, g = [], [], gens()
+    serial_launches = {}
+    for b, seq in enumerate(up):
+        st = boot[b]
+        for i in range(1, BATCH_TRACK_STEPS + 1):
+            st, n = counted(lambda: vo_mod.track_step(st, seq[i][0], cam, cfg,
+                                                      g[b]))
+            serial_launches.setdefault("track_step", n)
+        serial_track.append(st)
+        kf, n = counted(lambda: vo_mod.track_and_keyframe_step(
+            st, seq[-1][0], seq[-1][1], cam, cfg, g[b]))
+        serial_launches.setdefault("track_and_keyframe_step", n)
+        serial_kf.append(kf)
+    sync(device)
+    spent["bootstrap_and_serial_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the same as one batched program, every batched kernel call recorded
+    g = gens()
+    states = dp_eval.stack_states(boot)
+    batched_launches = {}
+    def every(module, name, keep=None):
+        return watched(module, name, lambda a, k: True, every=True,
+                       keep=keep)
+
+    # the anchor-cell launch writes its first argument: keep that atlas as
+    # it was before the launch, and the tensor itself (the atlas after)
+    with every(lk_kernel, "lk_align_cuda_batched") as lk_calls, \
+            every(fast_kernel, "fast_score_nms_cuda_batched") as fast_c, \
+            every(patch_kernel, "orb_describe_cuda_batched") as orb_c, \
+            every(patch_kernel, "anchor_cells_into_batched", keep=lambda a, k:
+                  ((a[0].clone(),) + a[1:], k, a[0])) as cells_c:
+        for i in range(1, BATCH_TRACK_STEPS + 1):
+            imgs = torch.stack([seq[i][0] for seq in up]).float()
+            u = dp_eval.draw_uniform(g, cfg)
+            states, n = counted(lambda: dp_eval.dp_track_step(
+                states, imgs, cam, cfg, u))
+            batched_launches.setdefault("track_step", n)
+        batched_track = states
+        u = dp_eval.draw_uniform(g, cfg)
+        lefts = torch.stack([seq[-1][0] for seq in up]).float()
+        rights = torch.stack([seq[-1][1] for seq in up]).float()
+        batched_kf, n = counted(lambda: dp_eval.dp_track_and_keyframe_step(
+            batched_track, lefts, rights, cam, cfg, u))
+        batched_launches["track_and_keyframe_step"] = n
+    # LK calls: one a track step, then the keyframe frame's track, anchored,
+    # primed stereo and full-pyramid stereo calls
+    kf_lk = lk_calls[BATCH_TRACK_STEPS:]
+    track_err = max(float((batched_track.T_cw[b] - serial_track[b].T_cw)
+                          .abs().max()) for b in range(BATCH))
+    kf_err = max(float((batched_kf.T_cw[b] - serial_kf[b].T_cw).abs().max())
+                 for b in range(BATCH))
+    state_diff = {}
+    for o, s in zip(dp_eval.unstack_states(batched_kf, BATCH), serial_kf):
+        for k, (cnt, d) in tree_diff(o, s).items():
+            old = state_diff.get(k, [0, None])
+            state_diff[k] = [old[0] + cnt, d if old[1] is None
+                             else max(old[1], d or 0.0)]
+    inliers = [int(x) for x in batched_kf.num_inliers]
+    serial_inliers = [int(s.num_inliers) for s in serial_kf]
+    distinct = not torch.allclose(serial_kf[0].T_cw, serial_kf[-1].T_cw,
+                                  atol=1e-4)
+    spent["batched_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = mixed_branch_keyframe(cfg, cam, up, serial_track, gens())
+    spent["mixed_branch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # CUDA kernels of one track step: B = BATCH, B = 1, and the serial step
+    u8 = dp_eval.draw_uniform(gens(), cfg)
+    imgs8 = torch.stack([seq[1][0] for seq in up]).float()
+    st8 = dp_eval.stack_states(boot)
+    st1 = dp_eval.stack_states(boot[:1])
+    prof = dict(
+        batched=profile_calls(lambda: dp_eval.dp_track_step(
+            st8, imgs8, cam, cfg, u8), device, reps=1),
+        b1=profile_calls(lambda: dp_eval.dp_track_step(
+            st1, imgs8[:1], cam, cfg, u8[:1]), device, reps=1),
+        serial=profile_calls(lambda: vo_mod.track_step(
+            boot[0], up[0][1][0], cam, cfg, uniform=u8[0]), device, reps=1))
+    spent["profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # bench.py dp_eval_bench: StereoVO over frames 0-2, its state broadcast
+    base = vo_mod.StereoVO(cfg, device=device)
+    for i in range(3):
+        base.track(*frames[i])
+    img = upload_image(frames[3][0], device).float()
+    rates = {}
+    for bsz in (1, BATCH):
+        st = dp_eval.stack_states([base.state] * bsz)
+        imgs = img.expand((bsz,) + tuple(img.shape))
+        g = [torch.Generator(device=device).manual_seed(b)
+             for b in range(bsz)]
+        st = dp_eval.dp_track_step(st, imgs, cam, cfg,
+                                   dp_eval.draw_uniform(g, cfg))
+        sync(device)
+        t_b = time.perf_counter()
+        for _ in range(DP_STEPS):
+            st = dp_eval.dp_track_step(st, imgs, cam, cfg,
+                                       dp_eval.draw_uniform(g, cfg))
+        sync(device)
+        rates[f"B{bsz}"] = bsz * DP_STEPS / (time.perf_counter() - t_b)
+    spent["dp_eval_bench_s"] = time.perf_counter() - t0
+    calls = dict(lk=[("batched track", lk_calls[0]),
+                     ("batched keyframe anchored", kf_lk[1]),
+                     ("batched keyframe stereo, 2 primed levels", kf_lk[2]),
+                     ("batched keyframe stereo, full pyramid", kf_lk[3])],
+                 fast=fast_c, orb=orb_c, cells=cells_c)
+    fig = dict(batch=BATCH, track_steps=BATCH_TRACK_STEPS,
+               starts=[4 * b for b in range(BATCH)],
+               track_pose_max_diff=track_err, kf_pose_max_diff=kf_err,
+               kf_state_leaves_differing=state_diff, inliers=inliers,
+               serial_inliers=serial_inliers, sequences_distinct=distinct,
+               mixed_branch=mixed,
+               serial_launches=serial_launches,
+               batched_launches=batched_launches,
+               cuda_kernels_per_track_step={k: v["cuda_kernels"]
+                                            for k, v in prof.items()},
+               track_step_profile=prof,
+               seq_frames_per_s=rates,
+               batch_speedup=rates[f"B{BATCH}"] / rates["B1"],
+               spent=spent, seconds=time.perf_counter() - t_phase)
+    return fig, calls
+
+
+def mixed_branch_keyframe(cfg, cam, up, tracked, generators):
+    """One batched keyframe step whose sequences take both sides of the
+    stereo-prior branch: sequence 0 a fresh state (no landmark, the full
+    pyramid), the others tracked on to their keyframe frame (the 2 primed
+    levels); held per sequence to its serial keyframe step on the new
+    keyframe's rows whose keypoint is the same in both runs (the x0.8
+    pyramid parts the runs' fresh keypoints): the right-image u kp_ur,
+    which the branch taken decides. Returns the figures."""
+    import torch
+    from trackingbench_slam_tpu_torch.models import vo as vo_mod
+    from trackingbench_slam_tpu_torch.parallel import dp_eval
+    states = [vo_mod.init_state(cfg, up[0][-1][0])] + [
+        vo_mod.track_step(tracked[b], up[b][-1][0], cam, cfg, generators[b])
+        for b in range(1, len(up))]
+    rights = [seq[-1][1] for seq in up]
+    serial = [vo_mod.keyframe_step(s, r, cam, cfg)
+              for s, r in zip(states, rights)]
+    batched = torch.func.vmap(
+        lambda s, r: vo_mod.keyframe_step(s, r, cam, cfg,
+                                          both_branches=True),
+        randomness="error")(dp_eval.stack_states(states),
+                            torch.stack(rights).float())
+    fig = dict(compared=[], with_ur=[], ur_flags_agree=[], ur_max_diff=[])
+    for b, o in enumerate(dp_eval.unstack_states(batched, len(up))):
+        s = serial[b].kfs
+        slot = int(torch.nonzero(s.valid & ~states[b].kfs.valid)[0, 0])
+        same = (s.kp_valid[slot] & o.kfs.kp_valid[slot]
+                & ((s.kp_xy[slot] - o.kfs.kp_xy[slot]).abs().amax(-1)
+                   <= 1e-5))
+        ur_s, ur_o = s.kp_ur[slot][same], o.kfs.kp_ur[slot][same]
+        both = (ur_s >= 0) & (ur_o >= 0)
+        fig["compared"].append(int(same.sum()))
+        fig["with_ur"].append(int(both.sum()))
+        fig["ur_flags_agree"].append(
+            float(((ur_s >= 0) == (ur_o >= 0)).float().mean()))
+        fig["ur_max_diff"].append(float((ur_s - ur_o)[both].abs().max())
+                                  if bool(both.any()) else None)
+    fig["serial_landmarks"] = [int(s.map.valid.sum()) for s in serial]
+    fig["ok"] = all(n >= 50 and a >= 0.99 and d is not None and d <= 1e-3
+                    for n, a, d in zip(fig["with_ur"], fig["ur_flags_agree"],
+                                       fig["ur_max_diff"]))
+    return fig
+
+
+def batched_cells_library(img, kp_xy, slots, want, cap):
+    """The yardstick of the batched anchor-cell call: one F.grid_sample over
+    the (B, 1, H, W) images that blends every sequence's wanted 16x16
+    cells, each sequence's grid padded to the largest count with centres
+    outside the image (zeros). Returns (the call, a function giving each
+    sequence's (n_ok_b, 16, 16) cells)."""
+    import torch
+    import torch.nn.functional as F
+    from trackingbench_slam_tpu_torch.ops.cuda import patch_kernel
+    c = patch_kernel.CELL
+    B, (h, w) = img.shape[0], img.shape[1:]
+    ok = want & (slots >= 0) & (slots < cap)
+    counts = ok.sum(1)
+    m = max(int(counts.max()), 1)
+    first = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)[:, :m]
+    xy = torch.gather(kp_xy, 1, first[..., None].expand(-1, -1, 2))
+    live = torch.arange(m, device=img.device)[None] < counts[:, None]
+    xy = torch.where(live[..., None], xy, torch.full_like(xy, -1e4))
+    ar = torch.arange(c, device=img.device, dtype=torch.float32) - c // 2
+    xs = (xy[..., 0, None, None] + ar[None, None, None, :]).expand(
+        -1, -1, c, c)
+    ys = (xy[..., 1, None, None] + ar[None, None, :, None]).expand(
+        -1, -1, c, c)
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
+                       -1).reshape(B, m * c, c, 2)
+    images = img[:, None].float()
+
+    def library():
+        return F.grid_sample(images, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    def cells():
+        got = library().reshape(B, m, c, c)
+        return [got[b, :int(counts[b])] for b in range(B)]
+    return library, cells
+
+
+def check_batched(calls):
+    """Every batched kernel call the batched phase recorded, rerun on the
+    card and held per sequence to the plain version with phase 3's
+    criteria; timed from CUDA-graph replay, bound summed over the
+    sequences."""
+    import torch
+    from trackingbench_slam_tpu_torch.kernel_bench import time_ms
+    from trackingbench_slam_tpu_torch.ops.cuda import (fast_kernel, lk_kernel,
+                                                       patch_kernel)
+    out = dict(lk=[], fast=[], orb=[], cells=[])
+
+    def pick(xs, b):
+        return [x[b] for x in xs]
+
+    for name, ((prev, cur, pts, start, valid), kw) in calls["lk"]:
+        B, n = pts.shape[:2]
+        args = (prev, cur, pts, start, valid)
+        got = lk_kernel.lk_align_cuda_batched(*args, **kw)
+        err, agree, terms, n_both = 0.0, 1.0, [0, 0], 0
+        for b in range(B):
+            kb = dict(kw, offset=None if kw.get("offset") is None
+                      else kw["offset"][b])
+            ab = (pick(prev, b), pick(cur, b), pts[b], start[b], valid[b])
+            ref = lk_kernel.lk_align_plain(*ab, **kb)
+            both = got[1][b] & ref[1]
+            agree = min(agree, float((got[1][b] == ref[1]).float().mean()))
+            if kw.get("fb_iters", 0) > 0:
+                agree = min(agree, float((got[3][b] == ref[3]).float().mean()))
+            n_both += int(both.sum())
+            if bool(both.any()):
+                err = max(err, float((got[0][b] - ref[0])[both].abs().max()))
+            t = lk_terms(lk_work(*ab, kb), n, kb)
+            terms = [terms[0] + t[0], terms[1] + t[1]]
+        if agree < 0.99 or err > 1e-3 or n_both == 0:
+            raise AssertionError(f"batched LK differs ({name}): flags agree "
+                                 f"{agree:.4f}, max |dxy| {err}")
+        ms, host_ms = time_ms(
+            lambda: lk_kernel.lk_align_cuda_batched(*args, **kw), 20)
+        plain_ms, _ = time_ms(lambda: [lk_kernel.lk_align_plain(
+            pick(prev, b), pick(cur, b), pts[b], start[b], valid[b],
+            **dict(kw, offset=None if kw.get("offset") is None
+                   else kw["offset"][b])) for b in range(B)], 1)
+        bms, by = bound(*terms)
+        out["lk"].append(dict(
+            case=f"{name}, B={B} x {len(prev)} levels, N={n} each, one "
+                 "launch", batch=B, n=n, levels=len(prev), converged=n_both,
+            flags_agree=agree,
+            max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None))
+    for (imgs, threshold, arc), _ in calls["fast"]:
+        B = imgs[0].shape[0]
+        got = fast_kernel.fast_score_nms_cuda_batched(imgs, threshold, arc)
+        for lvl, img in enumerate(imgs):
+            for b in range(B):
+                ref = fast_kernel.fast_score_nms_plain(img[b], threshold, arc)
+                if not torch.equal(got[lvl][b], ref):
+                    raise AssertionError(f"batched FAST differs, sequence "
+                                         f"{b} level {lvl}")
+        ms, host_ms = time_ms(lambda: fast_kernel.fast_score_nms_cuda_batched(
+            imgs, threshold, arc), 50)
+        plain_ms, _ = time_ms(lambda: [fast_kernel.fast_score_nms_plain(
+            img[b], threshold, arc) for img in imgs for b in range(B)], 2)
+        shapes = [tuple(img.shape[1:]) for img in imgs]
+        bms, by = bound(B * sum(h * w for h, w in shapes) * 8,
+                        B * fast_flops(shapes))
+        out["fast"].append(dict(
+            case=f"batched keyframe, B={B} x {len(imgs)}-level ORB pyramid, "
+                 "one launch", batch=B, max_abs_err=0.0, ms=ms,
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None))
+    for (raw, blurred, xy, valid, counts), _ in calls["orb"]:
+        B, n = xy.shape[:2]
+        got_a, got_d = patch_kernel.orb_describe_cuda_batched(
+            raw, blurred, xy, valid, counts)
+        err, bins, terms = 0.0, 1.0, [0, 0]
+        for b in range(B):
+            ab = (pick(raw, b), pick(blurred, b), xy[b], valid[b], counts)
+            e, agree = orb_describe_agreement(*ab, got=(got_a[b], got_d[b]))
+            err, bins = max(err, e), min(bins, agree)
+            t = orb_terms(ab[0], xy[b], valid[b], counts)
+            terms = [terms[0] + t[0], terms[1] + t[1]]
+        ms, host_ms = time_ms(lambda: patch_kernel.orb_describe_cuda_batched(
+            raw, blurred, xy, valid, counts), 50)
+        plain_ms, _ = time_ms(lambda: [patch_kernel.orb_describe_plain(
+            pick(raw, b), pick(blurred, b), xy[b], valid[b], counts)
+            for b in range(B)], 2)
+        bms, by = bound(*terms)
+        out["orb"].append(dict(
+            case=f"batched keyframe, B={B} x {len(raw)}-level ORB describe, "
+                 f"N={n} each, one launch", batch=B, n=n,
+            valid=int(valid.sum()), bins_agree=bins, max_abs_err=err, ms=ms,
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None))
+    for (atlas, img, kp_xy, slots, want, cap), _, after in calls["cells"]:
+        # `atlas`: the atlases as they were before the batched step's
+        # launch; `after`: as that launch left them
+        B, n = kp_xy.shape[:2]
+        got = patch_kernel.anchor_cells_into_batched(atlas.clone(), img,
+                                                     kp_xy, slots, want, cap)
+        terms = [0, 0]
+        for b in range(B):
+            ref = patch_kernel.anchor_cells_plain(img[b], kp_xy[b], slots[b],
+                                                  want[b], atlas[b], cap)
+            if not (torch.equal(got[b], ref) and torch.equal(after[b], ref)):
+                raise AssertionError(
+                    f"batched anchor cells differ, sequence {b}: rerun "
+                    f"{torch.equal(got[b], ref)}, the step's launch "
+                    f"{torch.equal(after[b], ref)}")
+            t = cells_terms(img[b], kp_xy[b], slots[b], want[b], cap)
+            terms = [terms[0] + t[0], terms[1] + t[1]]
+        scratch = atlas.clone()
+        ms, host_ms = time_ms(lambda: patch_kernel.anchor_cells_into_batched(
+            scratch, img, kp_xy, slots, want, cap), 50)
+        call_ms, _ = time_ms(lambda: patch_kernel.anchor_cells_into_batched(
+            atlas.clone(), img, kp_xy, slots, want, cap), 50)
+        plain_ms, _ = time_ms(lambda: [patch_kernel.anchor_cells_plain(
+            img[b], kp_xy[b], slots[b], want[b], atlas[b], cap)
+            for b in range(B)], 2)
+        library, library_cells = batched_cells_library(img, kp_xy, slots,
+                                                       want, cap)
+        library_ms, _ = time_ms(library, 50)
+        # held where the kernel's 32 x 32 crop is not clamped into the
+        # padded image (as the reference's, near the bottom and left edges)
+        library_diff, clamped = 0.0, 0
+        for b, cells in enumerate(library_cells()):
+            ok_b = want[b] & (slots[b] >= 0) & (slots[b] < cap)
+            corner = torch.floor(kp_xy[b][ok_b]) - 8.0
+            r0, c0 = patch_kernel.patch_origins(corner + 15.0, *img.shape[1:])
+            free = ((r0 == corner[:, 1]) & (c0 == corner[:, 0])
+                    & (r0 + 17 <= img.shape[1]) & (c0 + 17 <= img.shape[2]))
+            clamped += int((~free).sum())
+            plain = patch_kernel.bilinear_cell_patches(img[b], kp_xy[b])[ok_b]
+            library_diff = max(library_diff,
+                               float((cells - plain)[free].abs().max()))
+        if library_diff > 0.05:
+            raise AssertionError(f"batched grid_sample cells differ from the "
+                                 f"plain cells by {library_diff}")
+        bms, by = bound(*terms)
+        ok = want & (slots >= 0) & (slots < cap)
+        out["cells"].append(dict(
+            case=f"batched keyframe, B={B}, N={n} each, {int(ok.sum())} "
+                 f"cells into B {atlas.shape[-1]}^2 atlases, one launch",
+            batch=B, n=n, cells=int(ok.sum()), max_abs_err=0.0, ms=ms,
+            host_ms=host_ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=library_ms,
+            library_max_abs_diff=library_diff,
+            library_rows_not_compared=clamped))
+    return out
+
+
+def ba_problem(seed, device, landmarks, keyframes, obs):
+    """benchmarks/ba_scaling.py's grouped window, made with numpy from
+    `seed`: K poses 0.1 m apart with small rotations, L landmarks 4-40 m
+    deep, each seen by the first O poses, points perturbed by 5 cm."""
+    import torch
+    from trackingbench_slam_tpu_torch.geometry import se3
+    from trackingbench_slam_tpu_torch.solvers import local_ba
+    K, L, O = keyframes, landmarks, obs
+    r = np.random.RandomState(seed)
+    xi = np.stack([np.concatenate([[0.1 * k, 0, 0], r.randn(3) * 0.005])
+                   for k in range(K)]).astype(np.float32)
+    T_cw = se3.exp(torch.from_numpy(xi)).numpy()
+    X = r.uniform(-8, 8, (L, 3)).astype(np.float32)
+    X[:, 2] = r.uniform(4, 40, L)
+    kf = np.tile(np.arange(K, dtype=np.int32)[None, :O] % K, (L, 1))
+    pc = np.einsum("kij,lj->lki", T_cw[:, :3, :3], X) + T_cw[None, :, :3, 3]
+    pc = np.take_along_axis(pc, kf[..., None].astype(np.int64), axis=1)
+    px = np.stack([pc[..., 0] / pc[..., 2] * 707.0 + 613.0,
+                   pc[..., 1] / pc[..., 2] * 707.0 + 185.0], axis=-1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return local_ba.GroupedBAProblem(
+        T_cw=t(T_cw.astype(np.float32)),
+        points=t(X + r.randn(L, 3).astype(np.float32) * 0.05),
+        obs_kf=t(kf), obs_px=t(px.astype(np.float32)),
+        obs_inv_sigma2=t(np.ones((L, O), np.float32)),
+        obs_valid=t(np.ones((L, O), bool)))
+
+
+def ba_phase(device):
+    """Phase 14b: BA iterations/s with benchmarks/ba_scaling.py's protocol
+    ((t(12) - t(2)) / 10 over BA_REPS pre-uploaded 4096 x 16 x 16 windows,
+    one fence per sweep), for the one-device grouped solve and the
+    distributed one on a torch.distributed world of one over NCCL; then
+    both distributed solves held to bundle_adjust_grouped / bundle_adjust
+    within 5e-4 in pose (se3 log) and in the points (m)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.geometry import se3
+    from trackingbench_slam_tpu_torch.parallel import dist_ba
+    from trackingbench_slam_tpu_torch.solvers import local_ba
+    from trackingbench_slam_tpu_torch.utils.config import CameraConfig
+    t_phase = time.perf_counter()
+    cam = cam_mod.CameraParams.from_config(
+        CameraConfig(width=1226, height=370, fx=707.0, fy=707.0, cx=613.0,
+                     cy=185.0, bf=707.0 * 0.54), device)
+    problems = [ba_problem(s, device, **BA_WINDOW) for s in range(BA_REPS)]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        world = dist.group.WORLD
+        solvers = dict(
+            one_device=lambda gp, it: local_ba.bundle_adjust_grouped(
+                cam, gp, iters=it, num_fixed=1),
+            distributed_world1=lambda gp, it:
+                dist_ba.distributed_bundle_adjust_grouped(
+                    world, cam, gp, iters=it, num_fixed=1))
+
+        def sweep(solve, iters):
+            outs = [solve(gp, iters) for gp in problems]     # warm
+            sync(device)
+            t0 = time.perf_counter()
+            outs = [solve(gp, iters) for gp in problems]
+            for T, _ in outs:
+                T.cpu()
+            return (time.perf_counter() - t0) / len(problems)
+
+        # BA_SWEEPS readings of each solve, the two solves alternating so
+        # that a slow spell of the host falls on both
+        readings = {name: [] for name in solvers}
+        for _ in range(BA_SWEEPS):
+            for name, solve in solvers.items():
+                t_lo, t_hi = sweep(solve, 2), sweep(solve, 12)
+                readings[name].append(1.0 / max((t_hi - t_lo) / 10, 1e-9))
+        rates = {}
+        for name, r in readings.items():
+            med = float(np.median(r))
+            rates[name] = dict(iters_per_s=med, ms_per_iter=1e3 / med,
+                               min=min(r), max=max(r), readings=r)
+        one, dist1 = rates["one_device"], rates["distributed_world1"]
+        gap = dict(median_ratio=dist1["iters_per_s"] / one["iters_per_s"],
+                   ranges_overlap=(dist1["max"] >= one["min"]
+                                   and one["max"] >= dist1["min"]))
+
+        def pose_err(T_a, T_b):
+            return float(se3.log(se3.compose(T_a, se3.inverse(T_b))).abs()
+                         .max())
+        gp = problems[0]
+        T_s, X_s = local_ba.bundle_adjust_grouped(cam, gp, iters=10,
+                                                  num_fixed=1)
+        T_d, X_d = dist_ba.distributed_bundle_adjust_grouped(
+            world, cam, gp, iters=10, num_fixed=1)
+        L, O = gp.obs_kf.shape
+        flat = local_ba.BAProblem(
+            T_cw=gp.T_cw, points=gp.points, obs_kf=gp.obs_kf.reshape(-1),
+            obs_lm=torch.arange(L, dtype=torch.int32, device=device
+                                ).repeat_interleave(O),
+            obs_px=gp.obs_px.reshape(-1, 2),
+            obs_inv_sigma2=gp.obs_inv_sigma2.reshape(-1),
+            obs_valid=gp.obs_valid.reshape(-1))
+        ref = local_ba.bundle_adjust(cam, flat, iters=10, num_fixed=1)
+        sp = dist_ba.partition_problem(flat, 1)
+        T_f, X_f = dist_ba.distributed_bundle_adjust(
+            world, cam, dist_ba.local_shard(sp, 1, 0), iters=10, num_fixed=1)
+        moved = float((X_s - gp.points).abs().max())
+        fig = dict(landmarks=L, keyframes=gp.T_cw.shape[0],
+                   obs_per_landmark=O, reps=BA_REPS, sweeps=BA_SWEEPS,
+                   iters=rates, distributed_vs_one_device=gap,
+                   grouped_pose_err=pose_err(T_d, T_s),
+                   grouped_points_max_diff=float((X_d - X_s).abs().max()),
+                   flat_pose_err=pose_err(T_f, ref.T_cw),
+                   flat_points_max_diff=float(
+                       (X_f[:L] - ref.points).abs().max()),
+                   points_moved=moved, backend=dist.get_backend(world),
+                   world_size=dist.get_world_size())
+    finally:
+        dist.destroy_process_group()
+    fig["seconds"] = time.perf_counter() - t_phase
+    return fig
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1515,6 +2128,76 @@ def main():
                     f"({c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, bound "
                     f"{c['bound_ms']:.5f} ms)" for c in new_lk))
 
+    batched, batched_calls = batched_phase(cfg, frames, gt, scene, counters,
+                                           dev)
+    bl, sl = batched["batched_launches"], batched["serial_launches"]
+    ck = batched["cuda_kernels_per_track_step"]
+    log(f"[batched] {BATCH} sequences at {cfg.camera.width}x"
+        f"{cfg.camera.height} (from frames {batched['starts']}), "
+        f"{BATCH_TRACK_STEPS} batched track steps and one batched "
+        f"track-and-keyframe step against serial runs: max |d pose| "
+        f"{batched['track_pose_max_diff']:.2e} after tracking, "
+        f"{batched['kf_pose_max_diff']:.2e} after the keyframe (state "
+        f"leaves differing, [entries, max |diff|]: "
+        f"{batched['kf_state_leaves_differing']}), inliers "
+        f"{batched['inliers']} (serial {batched['serial_inliers']}); "
+        f"launches a step batched {bl} against serial {sl}; CUDA kernels a "
+        f"track step B={BATCH} {ck['batched']:.0f}, B=1 {ck['b1']:.0f}, "
+        f"serial {ck['serial']:.0f}; bench.py dp_eval_bench "
+        f"({DP_STEPS} steps): B1 {batched['seq_frames_per_s']['B1']:.2f}, "
+        f"B{BATCH} {batched['seq_frames_per_s'][f'B{BATCH}']:.2f} "
+        f"sequence-frames/s (x{batched['batch_speedup']:.2f}); mixed "
+        f"stereo-prior branch keyframe against serial: kp_ur flags agree "
+        f"{batched['mixed_branch']['ur_flags_agree']}, max |diff| "
+        f"{batched['mixed_branch']['ur_max_diff']} px over "
+        f"{batched['mixed_branch']['with_ur']} rows; the phase "
+        f"took {batched['seconds']:.1f} s")
+    kf_expected = dict(sl["track_and_keyframe_step"])
+    kf_expected["lk_align"] += 1   # both sides of the stereo-prior branch
+    if not (batched["track_pose_max_diff"] <= 1e-5
+            and batched["kf_pose_max_diff"] <= 1e-5
+            and batched["sequences_distinct"]
+            and bl["track_step"] == sl["track_step"]
+            and bl["track_and_keyframe_step"] == kf_expected
+            and ck["batched"] <= 1.5 * ck["b1"]
+            and batched["mixed_branch"]["ok"]):
+        raise AssertionError(f"batched tracking failed its gates: {batched}")
+    bcases = check_batched(batched_calls)
+    lk_cases += bcases["lk"]
+    fast_cases += bcases["fast"]
+    orb_cases += bcases["orb"]
+    anchor_cases += bcases["cells"]
+    log("[check] batched kernel calls against their plain versions per "
+        "sequence: " + "; ".join(
+            f"{c['case']}: err {c['max_abs_err']:.2e} ({c['ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms)"
+            for k in ("lk", "fast", "orb", "cells") for c in bcases[k]))
+
+    ba = ba_phase(dev)
+    gap = ba["distributed_vs_one_device"]
+    log(f"[BA] {ba['landmarks']} landmarks x {ba['keyframes']} keyframes x "
+        f"{ba['obs_per_landmark']} observations, {ba['reps']} windows, "
+        f"median of {ba['sweeps']} readings (min-max): "
+        + ", ".join(f"{k} {v['iters_per_s']:.1f} iterations/s "
+                    f"({v['min']:.1f}-{v['max']:.1f}; "
+                    f"{v['ms_per_iter']:.3f} ms)"
+                    for k, v in ba["iters"].items())
+        + f", distributed / one device {gap['median_ratio']:.3f} (ranges "
+          f"{'overlap' if gap['ranges_overlap'] else 'apart'})"
+        + f"; distributed at world {ba['world_size']} over {ba['backend']}"
+          f" against the one-device solves: grouped poses "
+          f"{ba['grouped_pose_err']:.2e}, points "
+          f"{ba['grouped_points_max_diff']:.2e} m, flat poses "
+          f"{ba['flat_pose_err']:.2e}, points "
+          f"{ba['flat_points_max_diff']:.2e} m (the solve moved points by "
+          f"up to {ba['points_moved']:.3f} m); the phase took "
+          f"{ba['seconds']:.1f} s")
+    if not (ba["grouped_pose_err"] < 5e-4 and ba["flat_pose_err"] < 5e-4
+            and ba["grouped_points_max_diff"] < 5e-4
+            and ba["flat_points_max_diff"] < 5e-4
+            and ba["points_moved"] > 1e-2):
+        raise AssertionError(f"distributed BA failed its gates: {ba}")
+
     paths = {"main_path_ba_off": ba_off["launches"],
              "main_path": launches,
              "main_path_prefetch": prefetch["launches"],
@@ -1531,7 +2214,10 @@ def main():
              "mono": mono["launches"],
              "sequences_kitti": sk["launches"],
              "sequences_real_sequence_eval": sr["launches"],
-             "sequences_euroc": se["launches"], "demo": sd["launches"]}
+             "sequences_euroc": se["launches"], "demo": sd["launches"],
+             f"batched_track_step_B{BATCH}": bl["track_step"],
+             f"batched_track_and_keyframe_step_B{BATCH}":
+                 bl["track_and_keyframe_step"]}
 
     def entry(name, source, replaces, primary, cases):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1564,7 +2250,7 @@ def main():
               "photometric": photometric,
               "loop_bench": dict(loop, jax_record=LOOP_RECORD),
               "direct": direct, "indirect": indirect, "mono": mono,
-              "sequences": seqs,
+              "sequences": seqs, "batched": batched, "ba": ba,
               "seconds": time.perf_counter() - t_start}
     log(f"[time] the whole script took {result['seconds']:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -1,7 +1,8 @@
 """The slice as a whole: the port's StereoVO against the JAX StereoVO on the
 same small corridor, with windowed BA off and on; one track step and one
 local BA step from a carried-over JAX state; the state converter; and the
-port's guards (no JAX, no silent CPU, no distributed BA)."""
+port's guards (no JAX, no silent CPU, no sharded BA without a
+torch.distributed world)."""
 
 import ast
 import os
@@ -208,9 +209,13 @@ def test_stereo_vo_needs_cuda_unless_asked_for_cpu():
     cfg = small_config()
     lm2 = PipelineConfig(camera=cfg.camera, local_ba_every=2,
                          mesh=MeshConfig(lm=2))
+    # mesh.lm > 1 is the landmark-sharded solve: without a torch.distributed
+    # world of two ranks its BA raises, never the one-device solve
     for tracker in (t_vo.StereoVO, MonoVO):
-        with pytest.raises(NotImplementedError, match="mesh.lm"):
-            tracker(lm2, device="cpu")
+        vo = tracker(lm2, device="cpu")
+        with pytest.raises(RuntimeError, match="mesh.lm"):
+            t_lm.local_ba_step(
+                t_vo.init_state(lm2, torch.zeros((240, 320))), vo.cam, lm2)
     trackers = (t_vo.StereoVO, DirectVO, IndirectVO, MonoVO)
     for tracker in trackers:
         vo = tracker(cfg, device="cpu")

@@ -31,7 +31,11 @@
 //     so the output is exact;
 //   * one launch covers every level: the grid is the levels' tiles laid end
 //     to end, and each block finds its level in a small table (image, output,
-//     shape, tiles a row, first block) built by the wrapper.
+//     shape, tiles a row, first block) built by the wrapper;
+//   * a batch of sequences runs in the same launch: blockIdx.y is the
+//     sequence, whose level images and score maps sit one batch stride per
+//     sequence past each level's pointers (dp_eval's batched keyframes make
+//     one launch for B x levels maps).
 
 #include <cuda_runtime.h>
 
@@ -44,8 +48,9 @@
 #define FAST_MAX_LEVELS 8
 
 struct FastLevel {
-  const float* img;
-  float* out;
+  const float* img;  // sequence 0's level image
+  float* out;        // sequence 0's score map
+  long long in_bs, out_bs;  // floats from one sequence to the next
   int h, w, tiles_x, first;
 };
 
@@ -77,6 +82,8 @@ __global__ void __launch_bounds__(THREADS) fast_nms_kernel(const FastArgs a) {
 #pragma unroll
   for (int l = 1; l < FAST_MAX_LEVELS; ++l)
     if (l < a.levels && (int)blockIdx.x >= a.lv[l].first) L = a.lv[l];
+  L.img += blockIdx.y * L.in_bs;
+  L.out += blockIdx.y * L.out_bs;
   const int t = (int)blockIdx.x - L.first;
   const int y0 = (t / L.tiles_x) * TILE, x0 = (t % L.tiles_x) * TILE;
   const int tid = threadIdx.x;
@@ -137,24 +144,29 @@ __global__ void __launch_bounds__(THREADS) fast_nms_kernel(const FastArgs a) {
   }
 }
 
-// imgs/outs: `levels` pointers; table: per level (h, w, tiles_x, first
-// block); blocks: the total tile count.
+// imgs/outs: `levels` pointers (sequence 0); bstrides: per level the image
+// and output batch strides in floats; table: per level (h, w, tiles_x,
+// first block); blocks: the total tile count of one sequence.
 extern "C" int fast_score_nms(const void* const* imgs, void* const* outs,
-                              const int* table, int levels, int blocks,
+                              const long long* bstrides, const int* table,
+                              int levels, int blocks, int batch,
                               float threshold, int arc, void* stream) {
-  if (blocks <= 0) return 0;
-  if (arc < 1 || arc > 16 || levels < 1 || levels > FAST_MAX_LEVELS)
+  if (blocks <= 0 || batch <= 0) return 0;
+  if (arc < 1 || arc > 16 || levels < 1 || levels > FAST_MAX_LEVELS ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   FastArgs a;
   for (int l = 0; l < FAST_MAX_LEVELS; ++l) {
     const int k = l < levels ? l : 0;
     const int* e = table + 4 * k;
-    a.lv[l] = FastLevel{(const float*)imgs[k], (float*)outs[k], e[0], e[1],
+    a.lv[l] = FastLevel{(const float*)imgs[k], (float*)outs[k],
+                        bstrides[2 * k], bstrides[2 * k + 1], e[0], e[1],
                         e[2], e[3]};
   }
   a.levels = levels;
   a.th = threshold;
   a.arc = arc;
-  fast_nms_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+  fast_nms_kernel<<<dim3(blocks, batch), THREADS, 0, (cudaStream_t)stream>>>(
+      a);
   return (int)cudaGetLastError();
 }

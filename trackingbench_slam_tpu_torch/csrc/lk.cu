@@ -49,7 +49,11 @@
 //     bilinear footprint leaves the tile or the image changes. The tile's
 //     rows are P + TC floats apart, so pixel p of the patch sits at offset
 //     p + TC * (p / P) and the 32 lanes of every tap read 32 banks;
-//   * all levels (and the back-track) run inside the one launch.
+//   * all levels (and the back-track) run inside the one launch;
+//   * a batch of sequences runs in the same launch: point i belongs to
+//     sequence i / n_per, whose images sit at each level's base pointer plus
+//     that many batch strides, so a point walks its own sequence's level
+//     chain (dp_eval's batched steps make one launch for all sequences).
 // The tile must reproduce exactly the pixels the window-local tap reads
 // (tap_of's slice clamps), so the staged region is addressed in global
 // coordinates: row by + iy + r, column bx + ix + c, each image bounded by
@@ -67,8 +71,9 @@
 #define FULL_MASK 0xffffffffu
 
 struct LkLevel {
-  const float* prev;  // template image of this level
-  const float* cur;   // search image of this level
+  const float* prev;  // template image of this level (sequence 0)
+  const float* cur;   // search image of this level (sequence 0)
+  long long prev_bs, cur_bs;  // floats from one sequence's image to the next
   int h, w;           // prev's shape
   int hc, wc;         // cur's shape
   int hp, wp;         // prev's padded shape at this half
@@ -86,7 +91,7 @@ struct LkArgs {
   float* err;
   unsigned char* fb_conv;
   float* fb_d2;
-  int n, levels, half, iters, fb_iters, win_rows, slice_rows;
+  int n, n_per, levels, half, iters, fb_iters, win_rows, slice_rows;
   float eps2, scale, start_scale;
 };
 
@@ -376,6 +381,7 @@ __global__ void __launch_bounds__(32 * WARPS, MINB) lk_kernel(const LkArgs a) {
     const int p = lane + 32 * k;
     pa.off[k] = p < sh.PP ? p + TC * (p / P) : 0;
   }
+  const long long seq = i / a.n_per;
   const float px = a.pts[2 * i], py = a.pts[2 * i + 1];
   float x = a.start[2 * i], y = a.start[2 * i + 1];
   if (a.offset != nullptr) {
@@ -406,8 +412,8 @@ __global__ void __launch_bounds__(32 * WARPS, MINB) lk_kernel(const LkArgs a) {
     converged = false;
     e = 1e9f;
     if (run) {
-      const Geo gp{L.prev, L.h, L.w, by_t, bx_t};
-      const Geo gc{L.cur, L.hc, L.wc, by_c, bx_c};
+      const Geo gp{L.prev + seq * L.prev_bs, L.h, L.w, by_t, bx_t};
+      const Geo gc{L.cur + seq * L.cur_bs, L.hc, L.wc, by_c, bx_c};
       const Cof c = make_template<K, TR, TC>(T, vw, pa, gp, tx, ty, sh);
       const Track s = run_lk<K, TR, TC>(T, vw, pa, gc, c, ux0, uy0, a.iters,
                                         a.eps2, sh);
@@ -448,26 +454,32 @@ __global__ void __launch_bounds__(32 * WARPS, MINB) lk_kernel(const LkArgs a) {
   }
 }
 
-// prev/cur: `levels` image pointers, level 0 first; shapes: per level
-// (h, w, hc, wc, hp, wp); scales: per level scale ** level.
+// prev/cur: `levels` image pointers (sequence 0), level 0 first; bstrides:
+// per level the prev and cur batch strides in floats; shapes: per level
+// (h, w, hc, wc, hp, wp); scales: per level scale ** level; n points in
+// sequences of n_per.
 extern "C" int lk_align(const void* const* prev, const void* const* cur,
-                        const int* shapes, const float* scales, int levels,
+                        const long long* bstrides, const int* shapes,
+                        const float* scales, int levels,
                         const float* pts, const float* start,
                         const float* offset, const unsigned char* valid,
                         float* xy, unsigned char* conv, float* err,
-                        unsigned char* fb_conv, float* fb_d2, int n, int half,
+                        unsigned char* fb_conv, float* fb_d2, int n,
+                        int n_per, int half,
                         int iters, float eps2, int fb_iters, int win_rows,
                         int slice_rows, float scale, float start_scale,
                         void* stream) {
   if (n <= 0) return 0;
-  if (half < 1 || half > LK_MAX_HALF || levels < 1 || levels > LK_MAX_LEVELS)
+  if (half < 1 || half > LK_MAX_HALF || levels < 1 ||
+      levels > LK_MAX_LEVELS || n_per < 1 || n % n_per != 0)
     return (int)cudaErrorInvalidValue;
   LkArgs a;
   for (int l = 0; l < LK_MAX_LEVELS; ++l) {
     const int k = l < levels ? l : 0;
     const int* sh = shapes + 6 * k;
-    a.lv[l] = LkLevel{(const float*)prev[k], (const float*)cur[k], sh[0],
-                      sh[1], sh[2], sh[3], sh[4], sh[5], scales[k]};
+    a.lv[l] = LkLevel{(const float*)prev[k], (const float*)cur[k],
+                      bstrides[2 * k], bstrides[2 * k + 1], sh[0], sh[1],
+                      sh[2], sh[3], sh[4], sh[5], scales[k]};
   }
   a.pts = pts;
   a.start = start;
@@ -479,6 +491,7 @@ extern "C" int lk_align(const void* const* prev, const void* const* cur,
   a.fb_conv = fb_conv;
   a.fb_d2 = fb_d2;
   a.n = n;
+  a.n_per = n_per;
   a.levels = levels;
   a.half = half;
   a.iters = iters;

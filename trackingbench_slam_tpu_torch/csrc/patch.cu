@@ -52,6 +52,13 @@
 // expression in its order with __fmul_rn / __fadd_rn / __fsub_rn, so the
 // library's FMA contraction cannot fuse it and the cells are bit-exact. The
 // wrapper clones the atlas first: the input map's tensor is never written.
+//
+// Batches: both kernels take a batch of sequences in one launch (dp_eval's
+// batched keyframes). Row i belongs to sequence i / n_per; its images, and
+// for anchor_cells its atlas, sit that many batch strides past the given
+// pointers. Each sequence writes only its own atlas, and within one
+// sequence the slots are distinct (add_points hands out free slots), so
+// every written cell has one writer.
 
 #include <cuda_runtime.h>
 
@@ -98,14 +105,15 @@ __device__ __forceinline__ void stage_crop(float* T,
 }
 
 struct OrbLevel {
-  const float* raw;
+  const float* raw;   // sequence 0's level
   const float* blur;
+  long long raw_bs, blur_bs;  // floats from one sequence to the next
   int h, w, hp, wp, first;
 };
 
 struct OrbArgs {
   OrbLevel lv[ORB_MAX_LEVELS];
-  int levels, n;
+  int levels, n, n_per;
   const float* xy;              // (N, 2) level coordinates
   const unsigned char* valid;   // (N,)
   const int* pairs;             // (32, 256): positions 2k | 2k+1 << 16
@@ -124,16 +132,17 @@ __global__ void __launch_bounds__(32 * ORB_WARPS) orb_describe_kernel(
     if (lane < 8) a.desc[8 * i + lane] = 0;
     return;
   }
+  const int seq = i / a.n_per, row = i - seq * a.n_per;
   OrbLevel L = a.lv[0];
 #pragma unroll
   for (int l = 1; l < ORB_MAX_LEVELS; ++l)
-    if (l < a.levels && i >= a.lv[l].first) L = a.lv[l];
+    if (l < a.levels && row >= a.lv[l].first) L = a.lv[l];
   const int r0 = crop_origin(a.xy[2 * i + 1], L.hp);
   const int c0 = crop_origin(a.xy[2 * i], L.wp);
   float* R = crops[warp][0];
   float* B = crops[warp][1];
-  stage_crop(R, L.raw, L.h, L.w, r0, c0, lane);
-  stage_crop(B, L.blur, L.h, L.w, r0, c0, lane);
+  stage_crop(R, L.raw + seq * L.raw_bs, L.h, L.w, r0, c0, lane);
+  stage_crop(B, L.blur + seq * L.blur_bs, L.h, L.w, r0, c0, lane);
 
   // IC angle: moments of the raw crop over the radius-15 circle at (15, 15)
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -180,24 +189,30 @@ __global__ void __launch_bounds__(32 * ORB_WARPS) orb_describe_kernel(
   if (lane < 8) a.desc[8 * i + lane] = (int)mine;
 }
 
-// raw/blur: `levels` image pointers; table: per level (h, w, hp, wp, first
-// row); pairs: (32, 512) int16 positions.
+// raw/blur: `levels` image pointers (sequence 0); bstrides: per level the
+// raw and blurred batch strides in floats; table: per level (h, w, hp, wp,
+// first row of a sequence); pairs: (32, 512) int16 positions; n rows in
+// sequences of n_per.
 extern "C" int orb_describe(const void* const* raw, const void* const* blur,
-                            const int* table, int levels, const float* xy,
+                            const long long* bstrides, const int* table,
+                            int levels, const float* xy,
                             const unsigned char* valid, const void* pairs,
-                            float* angle, int* desc, int n, void* stream) {
+                            float* angle, int* desc, int n, int n_per,
+                            void* stream) {
   if (n <= 0) return 0;
-  if (levels < 1 || levels > ORB_MAX_LEVELS)
+  if (levels < 1 || levels > ORB_MAX_LEVELS || n_per < 1 || n % n_per != 0)
     return (int)cudaErrorInvalidValue;
   OrbArgs a;
   for (int l = 0; l < ORB_MAX_LEVELS; ++l) {
     const int k = l < levels ? l : 0;
     const int* e = table + 5 * k;
-    a.lv[l] = OrbLevel{(const float*)raw[k], (const float*)blur[k], e[0],
-                       e[1], e[2], e[3], e[4]};
+    a.lv[l] = OrbLevel{(const float*)raw[k], (const float*)blur[k],
+                       bstrides[2 * k], bstrides[2 * k + 1], e[0], e[1], e[2],
+                       e[3], e[4]};
   }
   a.levels = levels;
   a.n = n;
+  a.n_per = n_per;
   a.xy = xy;
   a.valid = valid;
   a.pairs = (const int*)pairs;
@@ -209,13 +224,14 @@ extern "C" int orb_describe(const void* const* raw, const void* const* blur,
 }
 
 struct CellArgs {
-  const float* img;
+  const float* img;            // sequence 0's image
+  long long img_bs, atlas_bs;  // floats from one sequence to the next
   int h, w, hp, wp;
   const float* xy;             // (N, 2)
   const int* slots;            // (N,)
   const unsigned char* want;   // (N,)
-  float* atlas;                // (grid * CELL)^2
-  int grid, capacity;
+  float* atlas;                // sequence 0's (grid * CELL)^2 atlas
+  int grid, capacity, n_per;
 };
 
 __global__ void __launch_bounds__(CELL * CELL) anchor_cells_kernel(
@@ -223,6 +239,7 @@ __global__ void __launch_bounds__(CELL * CELL) anchor_cells_kernel(
   const int i = blockIdx.x;
   const int slot = a.slots[i];
   if (!a.want[i] || slot < 0 || slot >= a.capacity) return;  // block-uniform
+  const long long seq = i / a.n_per;
   const float x = a.xy[2 * i], y = a.xy[2 * i + 1];
   const float x0 = floorf(x), y0 = floorf(y);
   // the crop centred at floor(kp) + 7 starts at floor(kp) - 8
@@ -233,7 +250,7 @@ __global__ void __launch_bounds__(CELL * CELL) anchor_cells_kernel(
   const int gy = r0 + ty, gx = c0 + tx;
   const bool y_in = gy < a.h, y1_in = gy + 1 < a.h;
   const bool x_in = gx < a.w, x1_in = gx + 1 < a.w;
-  const float* p = a.img + (long long)gy * a.w + gx;
+  const float* p = a.img + seq * a.img_bs + (long long)gy * a.w + gx;
   const float t00 = (y_in && x_in) ? __ldg(p) : 0.0f;
   const float t01 = (y_in && x1_in) ? __ldg(p + 1) : 0.0f;
   const float t10 = (y1_in && x_in) ? __ldg(p + a.w) : 0.0f;
@@ -243,18 +260,23 @@ __global__ void __launch_bounds__(CELL * CELL) anchor_cells_kernel(
   const float bot = __fadd_rn(__fmul_rn(ofx, t10), __fmul_rn(fx, t11));
   const float v = __fadd_rn(__fmul_rn(ofy, top), __fmul_rn(fy, bot));
   const int row = slot / a.grid, col = slot - row * a.grid;
-  a.atlas[(long long)(row * CELL + ty) * (a.grid * CELL) + col * CELL + tx] =
+  a.atlas[seq * a.atlas_bs +
+          (long long)(row * CELL + ty) * (a.grid * CELL) + col * CELL + tx] =
       v;
 }
 
 // img: (h, w) level-0 image, zero-padded to (hp, wp) for the crop clamps;
-// atlas: (grid * 16)^2, written in place at the wanted slots' cells.
-extern "C" int anchor_cells(const float* img, int h, int w, int hp, int wp,
-                            const float* xy, const int* slots,
-                            const unsigned char* want, float* atlas, int grid,
-                            int capacity, int n, void* stream) {
+// atlas: (grid * 16)^2, written in place at the wanted slots' cells; n rows
+// in sequences of n_per, each with its image and atlas a batch stride on.
+extern "C" int anchor_cells(const float* img, long long img_bs, int h, int w,
+                            int hp, int wp, const float* xy, const int* slots,
+                            const unsigned char* want, float* atlas,
+                            long long atlas_bs, int grid, int capacity, int n,
+                            int n_per, void* stream) {
   if (n <= 0) return 0;
-  CellArgs a{img, h, w, hp, wp, xy, slots, want, atlas, grid, capacity};
+  if (n_per < 1 || n % n_per != 0) return (int)cudaErrorInvalidValue;
+  CellArgs a{img,  img_bs, atlas_bs, h,    w,     hp,       wp,   xy,
+             slots, want,  atlas,    grid, capacity, n_per};
   anchor_cells_kernel<<<n, CELL * CELL, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

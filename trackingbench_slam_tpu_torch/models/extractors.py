@@ -52,8 +52,9 @@ def occupancy_mask(shape_hw, existing_xy: torch.Tensor,
     h, w = shape_hw
     xi = torch.round(existing_xy[:, 0]).clamp(0, w - 1).long()
     yi = torch.round(existing_xy[:, 1]).clamp(0, h - 1).long()
-    occ = torch.zeros((h, w), dtype=torch.float32, device=existing_xy.device)
-    occ.index_put_((yi, xi), existing_valid.float(), accumulate=True)
+    occ = torch.zeros((h, w), dtype=torch.float32,
+                      device=existing_xy.device).index_put(
+        (yi, xi), existing_valid.float(), accumulate=True)
     occ = (occ > 0.0).float()
     k = 2 * radius + 1
     occ = F.max_pool2d(occ[None, None], k, stride=1, padding=radius)[0, 0]

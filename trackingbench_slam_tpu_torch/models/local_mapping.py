@@ -10,6 +10,13 @@ is written back into the keyframe ring, the map and the live pose.
 Ties follow the reference: the landmark ranking keeps jax.lax.top_k's
 lower-index-first order (`stable_topk`), and the ring order is a stable
 argsort of frame ids. Nothing in the solve is fetched to the host.
+
+With cfg.mesh.lm > 1 the solve is landmark-sharded over torch.distributed
+(parallel/dist_ba.py), as the reference shards it over its mesh: every rank
+runs the front end replicated, solves its equal row block of the grouped
+window on its 'lm' process group, and the blocks are gathered back. Without
+a torch.distributed world of that many ranks it raises; it never falls back
+to the one-device solve.
 """
 
 from __future__ import annotations
@@ -19,21 +26,14 @@ import torch
 from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
 from trackingbench_slam_tpu_torch.geometry import se3
 from trackingbench_slam_tpu_torch.ops.fast import stable_topk
+from trackingbench_slam_tpu_torch.parallel import dist_ba
+from trackingbench_slam_tpu_torch.parallel import mesh as mesh_mod
 from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.solvers.local_ba import (
     BAProblem, GroupedBAProblem, _grouped_residuals, bundle_adjust_grouped)
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
 
 _stage = torch.profiler.record_function
-
-
-def require_single_device_ba(cfg: PipelineConfig) -> None:
-    """The landmark-sharded solve of the reference (cfg.mesh.lm > 1) is not
-    part of this package; refuse it rather than run the one-device solve."""
-    if cfg.mesh.lm > 1:
-        raise NotImplementedError(
-            "distributed windowed BA (cfg.mesh.lm > 1, the reference's "
-            "parallel/dist_ba.py) is not ported; use mesh.lm = 1")
 
 
 def _ring_order(kfs):
@@ -132,7 +132,6 @@ def local_ba_step(state, cam: cam_mod.CameraParams, cfg: PipelineConfig,
 
     num_fixed: clamped oldest poses (1 for stereo windows, whose u_R rows
     pin scale)."""
-    require_single_device_ba(cfg)
     m, kfs = state.map, state.kfs
     KF = kfs.T_cw.shape[0]
     problem, order, lm_idx = build_window_problem_grouped(
@@ -154,12 +153,16 @@ def local_ba_step(state, cam: cam_mod.CameraParams, cfg: PipelineConfig,
     fixed_mask = ((d < torch.clamp(n_live - cfg.solver.window_keyframes,
                                    min=num_fixed))
                   | (d >= n_live) | (d < num_fixed))
-    with _stage("ba.bundle_adjust_grouped"):
-        T_opt, X_opt = bundle_adjust_grouped(
-            cam, problem, iters=cfg.solver.ba_iters,
-            huber_delta=cfg.solver.huber_delta,
-            init_lambda=cfg.solver.init_lambda, num_fixed=num_fixed,
-            fixed_mask=fixed_mask, stereo_weight=cfg.solver.stereo_weight)
+    solve = dict(iters=cfg.solver.ba_iters,
+                 huber_delta=cfg.solver.huber_delta,
+                 init_lambda=cfg.solver.init_lambda, num_fixed=num_fixed,
+                 fixed_mask=fixed_mask, stereo_weight=cfg.solver.stereo_weight)
+    if cfg.mesh.lm > 1:
+        with _stage("ba.distributed_bundle_adjust_grouped"):
+            T_opt, X_opt = sharded_solve(cam, problem, cfg, **solve)
+    else:
+        with _stage("ba.bundle_adjust_grouped"):
+            T_opt, X_opt = bundle_adjust_grouped(cam, problem, **solve)
 
     ord_valid = kfs.valid[order]
     T_new = torch.where(ord_valid[:, None, None], T_opt, problem.T_cw)
@@ -175,6 +178,25 @@ def local_ba_step(state, cam: cam_mod.CameraParams, cfg: PipelineConfig,
     T_cw = se3.normalize(se3.compose(corr, state.T_cw))
     return state._replace(map=m, kfs=kfs, T_cw=T_cw,
                           prev=state.prev._replace(T_cw=T_cw))
+
+
+def sharded_solve(cam: cam_mod.CameraParams, problem: GroupedBAProblem,
+                  cfg: PipelineConfig, **solve):
+    """The grouped window solved landmark-sharded over this rank's 'lm'
+    process group (parallel/dist_ba.py): this rank's equal row block, then
+    every block gathered back, so every rank writes back the same window.
+    Raises when torch.distributed holds fewer than mesh.dp x mesh.lm
+    ranks."""
+    lm = cfg.mesh.lm
+    assert cfg.solver.max_landmarks % lm == 0, (
+        "solver.max_landmarks must divide evenly over mesh.lm shards")
+    rm = mesh_mod.lm_mesh(lm, cfg.mesh.dp)
+    group = rm.lm_group
+    T_opt, X_loc = dist_ba.distributed_bundle_adjust_grouped(
+        group, cam, dist_ba.row_block(problem, lm, rm.lm_index), **solve)
+    blocks = [torch.empty_like(X_loc) for _ in range(lm)]
+    torch.distributed.all_gather(blocks, X_loc.contiguous(), group=group)
+    return T_opt, torch.cat(blocks)
 
 
 def track_keyframe_ba_step(state, img_left: torch.Tensor,

@@ -147,13 +147,16 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
 
 
 def _add_rows(dst: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
-    """dst.at[idx].add(src, mode="drop") along dim 0."""
+    """dst.at[idx].add(src, mode="drop") for the map's 1-D integer counters.
+    scatter_add rather than index_add: under vmap (parallel/dp_eval.py)
+    index_add with a batched index runs once per sequence, scatter_add
+    once for the batch; integer sums are exact in any order."""
     n = dst.shape[0]
     ext = torch.cat([dst, dst[:1]])
     if not torch.is_tensor(src):
         src = torch.full((idx.shape[0],), src, dtype=dst.dtype,
                          device=dst.device)
-    ext.index_add_(0, _drop_index(idx, n), src.to(dst.dtype))
+    ext = ext.scatter_add(0, _drop_index(idx, n), src.to(dst.dtype))
     return ext[:n]
 
 

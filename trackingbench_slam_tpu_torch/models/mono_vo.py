@@ -32,8 +32,7 @@ from trackingbench_slam_tpu_torch.models import map as map_mod
 from trackingbench_slam_tpu_torch.models import vo as vo_mod
 from trackingbench_slam_tpu_torch.models.extractors import extract_orb
 from trackingbench_slam_tpu_torch.models.frame import make_frame
-from trackingbench_slam_tpu_torch.models.local_mapping import (
-    local_ba_step, require_single_device_ba)
+from trackingbench_slam_tpu_torch.models.local_mapping import local_ba_step
 from trackingbench_slam_tpu_torch.ops.align import lk_pyramidal
 from trackingbench_slam_tpu_torch.ops.stats import nanmedian
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
@@ -112,8 +111,6 @@ class MonoVO:
 
     def __init__(self, cfg: PipelineConfig, init_depth: float = 8.0,
                  min_parallax_px: float = 25.0, device=None):
-        if cfg.local_ba_every > 0:
-            require_single_device_ba(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam = cam_mod.CameraParams.from_config(cfg.camera, self.device)

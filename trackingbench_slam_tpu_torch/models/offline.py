@@ -111,11 +111,7 @@ class OfflineStereoVO:
 
     def __init__(self, cfg: PipelineConfig, device=None):
         from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
-        from trackingbench_slam_tpu_torch.models.local_mapping import \
-            require_single_device_ba
         from trackingbench_slam_tpu_torch.utils.device import resolve_device
-        if cfg.local_ba_every > 0:
-            require_single_device_ba(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam = cam_mod.CameraParams.from_config(cfg.camera, self.device)

@@ -12,7 +12,9 @@ attached, loop closing and relocalization (models/loop_closer.py).
 
 The code runs eagerly on the device of its inputs. The reference picks the
 stereo LK pyramid depth with lax.cond on the device; here that choice is a
-host branch, which costs one device-to-host sync per keyframe.
+host branch, which costs one device-to-host sync per keyframe. The steps
+also run under torch.func.vmap (parallel/dp_eval.py), where the branch runs
+both ways and torch.where selects (`keyframe_step(both_branches=True)`).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from trackingbench_slam_tpu_torch.models.frame import (FrameState,
                                                        is_in_frustum,
                                                        make_frame,
                                                        with_keypoints)
-from trackingbench_slam_tpu_torch.models.local_mapping import (
-    require_single_device_ba, track_keyframe_ba_step)
+from trackingbench_slam_tpu_torch.models.local_mapping import \
+    track_keyframe_ba_step
 from trackingbench_slam_tpu_torch.models.loop_closer import (
     apply_loop_correction, track_keyframe_register_step)
 from trackingbench_slam_tpu_torch.models.offline import refine_trajectory
@@ -173,9 +175,12 @@ def add_fresh_keypoints(f: FrameState, cam: cam_mod.CameraParams,
 
 
 def keyframe_step(state: VOState, img_right: torch.Tensor,
-                  cam: cam_mod.CameraParams,
-                  cfg: PipelineConfig) -> VOState:
-    """Keyframe insertion on the current (tracked) frame."""
+                  cam: cam_mod.CameraParams, cfg: PipelineConfig,
+                  both_branches: bool = False) -> VOState:
+    """Keyframe insertion on the current (tracked) frame. The stereo LK
+    depth (2 primed levels or the full pyramid) is a host branch; with
+    `both_branches` (batched callers, under vmap) both calls run and
+    torch.where keeps the one the branch would have taken."""
     f = state.prev
     # anchored refinement against creation-time anchor patches
     m_pre = state.map
@@ -208,16 +213,29 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
                                          torch.full_like(disp, float("nan"))),
                              dim=0)
         have_prior = torch.isfinite(med_disp) & (known.sum() >= 10)
-        if bool(have_prior):   # host branch: one sync per keyframe
+
+        def primed():
             disp_i = torch.where(known, disp, med_disp)
             prior = torch.stack([-disp_i, torch.zeros_like(disp_i)], -1)
-            lk = lk_pyramidal(f.lk_pyr, right.lk_pyr, f.kp_xy, f.valid, 0.5,
-                              half=10, iters=30, num_levels=2,
-                              init_offset=prior, fb_iters=10)
+            return lk_pyramidal(f.lk_pyr, right.lk_pyr, f.kp_xy, f.valid,
+                                0.5, half=10, iters=30, num_levels=2,
+                                init_offset=prior, fb_iters=10)
+
+        def full():
+            return lk_pyramidal(f.lk_pyr, right.lk_pyr, f.kp_xy, f.valid,
+                                0.5, half=10, iters=30,
+                                num_levels=len(f.lk_pyr), fb_iters=10)
+
+        if both_branches:
+            # the select vmap makes of the reference's lax.cond: both
+            # calls run and each sequence keeps its own branch's result
+            a, b = primed(), full()
+            lk = type(a)(*[torch.where(have_prior, x, y)
+                           for x, y in zip(a, b)])
+        elif bool(have_prior):   # host branch: one sync per keyframe
+            lk = primed()
         else:
-            lk = lk_pyramidal(f.lk_pyr, right.lk_pyr, f.kp_xy, f.valid, 0.5,
-                              half=10, iters=30, num_levels=len(f.lk_pyr),
-                              fb_iters=10)
+            lk = full()
     fb_ok = lk.fb_conv & (lk.fb_d2 < 1.0)
     depth, disp_ok = tri.stereo_depth(cam.bf, f.kp_xy[:, 0], lk.xy[:, 0])
     row_ok = torch.abs(lk.xy[:, 1] - f.kp_xy[:, 1]) < 2.0
@@ -344,8 +362,6 @@ class StereoVO:
     reloc_max_fails = 2
 
     def __init__(self, cfg: PipelineConfig, device=None):
-        if cfg.local_ba_every > 0:
-            require_single_device_ba(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam = cam_mod.CameraParams.from_config(cfg.camera, self.device)

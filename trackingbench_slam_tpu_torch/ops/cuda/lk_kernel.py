@@ -13,6 +13,11 @@ travel bounds local to those windows, one enlarged bilinear sample for
 template and gradients, cofactor inverse, per-point convergence, an
 optional fused forward-backward re-track at level 0, and the final in-image
 check against the template image's level-0 shape.
+
+`lk_align` goes through the custom op `trackingbench::lk_align`, whose
+batching rule (torch.func.vmap, parallel/dp_eval.py) launches the kernel
+once for the whole batch on CUDA, each sequence's points on its own
+images, and loops over the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from trackingbench_slam_tpu_torch.ops.cuda import build
+from trackingbench_slam_tpu_torch.ops.cuda import batch, build
 
 MARGIN = 12
 WIN_LANES = 256
@@ -106,13 +111,44 @@ def lk_align(prev_pyr, cur_pyr, pts, start, valid, scale: float = 0.5,
     if offset is not None and offset.shape != pts.shape:
         offset = offset.expand(pts.shape).contiguous()
     _check(prev_pyr, cur_pyr, pts, start, valid, half, offset)
+    if pts.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"lk_align: no kernel for {pts.device}")
+    return tuple(_lk_align_op(list(prev_pyr), list(cur_pyr), pts, start,
+                              valid, offset, float(scale), half, iters,
+                              float(conv_eps), fb_iters))
+
+
+@torch.library.custom_op("trackingbench::lk_align", mutates_args=())
+def _lk_align_op(prev_pyr: list[torch.Tensor], cur_pyr: list[torch.Tensor],
+                 pts: torch.Tensor, start: torch.Tensor, valid: torch.Tensor,
+                 offset: torch.Tensor | None, scale: float, half: int,
+                 iters: int, conv_eps: float,
+                 fb_iters: int) -> list[torch.Tensor]:
+    kw = dict(scale=scale, offset=offset, half=half, iters=iters,
+              conv_eps=conv_eps, fb_iters=fb_iters)
+    fn = lk_align_cuda if pts.is_cuda else lk_align_plain
+    return list(fn(prev_pyr, cur_pyr, pts, start, valid, **kw))
+
+
+@_lk_align_op.register_vmap
+def _lk_align_vmap(info, in_dims, prev_pyr, cur_pyr, pts, start, valid,
+                   offset, scale, half, iters, conv_eps, fb_iters):
+    """B sequences: one launch on CUDA, the plain version per sequence on
+    the CPU."""
+    B = info.batch_size
+    prev_pyr = batch.first_all(prev_pyr, in_dims[0], B)
+    cur_pyr = batch.first_all(cur_pyr, in_dims[1], B)
+    pts, start, valid, offset = (batch.first(t, d, B) for t, d in zip(
+        (pts, start, valid, offset), in_dims[2:6]))
     kw = dict(scale=scale, offset=offset, half=half, iters=iters,
               conv_eps=conv_eps, fb_iters=fb_iters)
     if pts.is_cuda:
-        return lk_align_cuda(prev_pyr, cur_pyr, pts, start, valid, **kw)
-    if pts.device.type != "cpu":
-        raise RuntimeError(f"lk_align: no kernel for {pts.device}")
-    return lk_align_plain(prev_pyr, cur_pyr, pts, start, valid, **kw)
+        out = lk_align_cuda_batched(prev_pyr, cur_pyr, pts, start, valid,
+                                    **kw)
+    else:
+        out = batch.loop(lk_align_plain, B, prev_pyr, cur_pyr, pts, start,
+                         valid, **kw)
+    return list(out), [0] * len(out)
 
 
 def patch_align(prev_img, cur_img, pts, init_xy, valid, half: int = 10,
@@ -131,8 +167,8 @@ def _kernel():
     if _lk_fn is None:
         fn = build.load("lk").lk_align
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         _lk_fn = fn
@@ -142,39 +178,60 @@ def _kernel():
 def lk_align_cuda(prev_pyr, cur_pyr, pts, start, valid, scale=0.5,
                   offset=None, half=10, iters=30, conv_eps=0.01, fb_iters=0):
     """`lk_align` in one launch of csrc/lk.cu (inputs as `lk_align` checks
-    them, offset (N, 2) or None)."""
+    them, offset (N, 2) or None): the batch of one sequence."""
+    out = lk_align_cuda_batched(
+        [p[None] for p in prev_pyr], [c[None] for c in cur_pyr], pts[None],
+        start[None], valid[None], scale=scale,
+        offset=None if offset is None else offset[None], half=half,
+        iters=iters, conv_eps=conv_eps, fb_iters=fb_iters)
+    return tuple(o[0] for o in out)
+
+
+def lk_align_cuda_batched(prev_pyr, cur_pyr, pts, start, valid, scale=0.5,
+                          offset=None, half=10, iters=30, conv_eps=0.01,
+                          fb_iters=0):
+    """B sequences in one launch of csrc/lk.cu: every level (B, H, W) (a
+    batch stride of 0 shares one image), pts / start / offset (B, N, 2),
+    valid (B, N). Returns the outputs with a leading B axis."""
     fn = _kernel()
     levels = len(prev_pyr)
-    prev_pyr = [p.contiguous() for p in prev_pyr]
-    cur_pyr = [c.contiguous() for c in cur_pyr]
+    prev_pyr = [batch.rows_contiguous(p) for p in prev_pyr]
+    cur_pyr = [batch.rows_contiguous(c) for c in cur_pyr]
     shapes, scales, start_scale = level_table(
-        [p.shape for p in prev_pyr], [c.shape for c in cur_pyr], half, scale)
+        [p.shape[1:] for p in prev_pyr], [c.shape[1:] for c in cur_pyr],
+        half, scale)
+    bstrides = [s for p, c in zip(prev_pyr, cur_pyr)
+                for s in (p.stride(0), c.stride(0))]
+    B, n = pts.shape[:2]
     pts, start = pts.contiguous(), start.contiguous()
     valid = valid.contiguous()
     offset = None if offset is None else offset.contiguous()
-    n = pts.shape[0]
     dev = pts.device
-    fbuf = torch.empty((4 * n,), dtype=torch.float32, device=dev)
-    bbuf = torch.empty((2 * n,), dtype=torch.bool, device=dev)
-    xy, err, fb_d2 = fbuf[:2 * n].view(n, 2), fbuf[2 * n:3 * n], fbuf[3 * n:]
-    conv, fb_conv = bbuf[:n], bbuf[n:]
-    if n > 0:
+    f32 = dict(dtype=torch.float32, device=dev)
+    xy = torch.empty((B, n, 2), **f32)
+    err = torch.empty((B, n), **f32)
+    conv = torch.empty((B, n), dtype=torch.bool, device=dev)
+    out = [xy, conv, err]
+    if fb_iters > 0:
+        out += [torch.empty((B, n), dtype=torch.bool, device=dev),
+                torch.empty((B, n), **f32)]
+    if B * n > 0:
         rc = fn((ctypes.c_void_p * levels)(*[p.data_ptr() for p in prev_pyr]),
                 (ctypes.c_void_p * levels)(*[c.data_ptr() for c in cur_pyr]),
+                (ctypes.c_longlong * len(bstrides))(*bstrides),
                 (ctypes.c_int * len(shapes))(*shapes),
                 (ctypes.c_float * levels)(*scales), levels, pts.data_ptr(),
                 start.data_ptr(),
                 None if offset is None else offset.data_ptr(),
                 valid.data_ptr(), xy.data_ptr(), conv.data_ptr(),
-                err.data_ptr(), fb_conv.data_ptr(), fb_d2.data_ptr(), n, half,
+                err.data_ptr(), out[3].data_ptr() if fb_iters > 0 else None,
+                out[4].data_ptr() if fb_iters > 0 else None, B * n, n, half,
                 iters, float(conv_eps * conv_eps), fb_iters, win_rows(half),
                 slice_rows(half), scale, start_scale,
                 torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "lk_align")
         lk_align_cuda.launches += 1
-    if fb_iters > 0:
-        return xy, conv, err, fb_conv, fb_d2
-    return xy, conv, err
+    return tuple(out)
 
 
 lk_align_cuda.launches = 0

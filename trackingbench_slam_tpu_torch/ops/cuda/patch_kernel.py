@@ -16,7 +16,12 @@ reaches device memory:
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors. `extract_patches32_plain` is the crop itself, with the
-Pallas window clamps: the plain versions' building block.
+Pallas window clamps: the plain versions' building block. Both go through
+custom ops (`trackingbench::orb_describe`, `trackingbench::anchor_cells`)
+whose batching rules (torch.func.vmap, parallel/dp_eval.py) make one launch
+for a batch of sequences on CUDA, each sequence on its own images and
+atlas, and loop over the plain versions on the CPU. The anchor-cell op is
+functional: it writes into a copy of the atlas it is given.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from trackingbench_slam_tpu_torch.ops import orb as orb_ops
 from trackingbench_slam_tpu_torch.ops import packing
-from trackingbench_slam_tpu_torch.ops.cuda import build
+from trackingbench_slam_tpu_torch.ops.cuda import batch, build
 
 PATCH = 32
 WIN_ROWS = 56
@@ -113,11 +118,34 @@ def orb_describe(raw, blurred, xy, valid, counts):
     invalid rows."""
     raw, blurred, counts = list(raw), list(blurred), [int(c) for c in counts]
     _check_orb(raw, blurred, xy, valid, counts)
-    if xy.is_cuda:
-        return orb_describe_cuda(raw, blurred, xy, valid, counts)
-    if xy.device.type != "cpu":
+    if xy.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"orb_describe: no kernel for {xy.device}")
-    return orb_describe_plain(raw, blurred, xy, valid, counts)
+    return tuple(_orb_op(raw, blurred, xy, valid, counts))
+
+
+@torch.library.custom_op("trackingbench::orb_describe", mutates_args=())
+def _orb_op(raw: list[torch.Tensor], blurred: list[torch.Tensor],
+            xy: torch.Tensor, valid: torch.Tensor,
+            counts: list[int]) -> list[torch.Tensor]:
+    fn = orb_describe_cuda if xy.is_cuda else orb_describe_plain
+    return list(fn(raw, blurred, xy, valid, counts))
+
+
+@_orb_op.register_vmap
+def _orb_vmap(info, in_dims, raw, blurred, xy, valid, counts):
+    """B sequences: one launch on CUDA, the plain version per sequence on
+    the CPU."""
+    B = info.batch_size
+    raw = batch.first_all(raw, in_dims[0], B)
+    blurred = batch.first_all(blurred, in_dims[1], B)
+    xy, valid = batch.first(xy, in_dims[2], B), batch.first(valid,
+                                                            in_dims[3], B)
+    if xy.is_cuda:
+        out = orb_describe_cuda_batched(raw, blurred, xy, valid, counts)
+    else:
+        out = batch.loop(orb_describe_plain, B, raw, blurred, xy, valid,
+                         counts)
+    return list(out), [0, 0]
 
 
 def orb_describe_plain(raw, blurred, xy, valid, counts):
@@ -148,29 +176,45 @@ def _orb_kernel():
     if _orb_fn is None:
         fn = build.load("patch").orb_describe
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         _orb_fn = fn
     return _orb_fn
 
 
 def orb_describe_cuda(raw, blurred, xy, valid, counts):
-    """`orb_describe` in one launch of csrc/patch.cu for all levels."""
+    """`orb_describe` in one launch of csrc/patch.cu for all levels: the
+    batch of one."""
+    angle, desc = orb_describe_cuda_batched(
+        [r[None] for r in raw], [b[None] for b in blurred], xy[None],
+        valid[None], counts)
+    return angle[0], desc[0]
+
+
+def orb_describe_cuda_batched(raw, blurred, xy, valid, counts):
+    """B sequences in one launch: levels (B, H, W), xy (B, N, 2), valid
+    (B, N), the same `counts` rows a level in every sequence. Returns
+    (angle (B, N), desc (B, N, 8))."""
     fn = _orb_kernel()
-    raw = [r.contiguous() for r in raw]
-    blurred = [b.contiguous() for b in blurred]
+    raw = [batch.rows_contiguous(r) for r in raw]
+    blurred = [batch.rows_contiguous(b) for b in blurred]
     xy, valid = xy.contiguous(), valid.contiguous()
-    table = orb_level_table([tuple(r.shape) for r in raw], counts)
-    n, dev = xy.shape[0], xy.device
-    angle = torch.empty((n,), dtype=torch.float32, device=dev)
-    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    if n > 0:
+    table = orb_level_table([tuple(r.shape[1:]) for r in raw], counts)
+    bstrides = [s for r, b in zip(raw, blurred)
+                for s in (r.stride(0), b.stride(0))]
+    B, n = xy.shape[:2]
+    dev = xy.device
+    angle = torch.empty((B, n), dtype=torch.float32, device=dev)
+    desc = torch.empty((B, n, 8), dtype=torch.int32, device=dev)
+    if B * n > 0:
         levels = len(raw)
         rc = fn((ctypes.c_void_p * levels)(*[r.data_ptr() for r in raw]),
                 (ctypes.c_void_p * levels)(*[b.data_ptr() for b in blurred]),
+                (ctypes.c_longlong * len(bstrides))(*bstrides),
                 (ctypes.c_int * len(table))(*table), levels, xy.data_ptr(),
                 valid.data_ptr(), brief_pairs(dev).data_ptr(),
-                angle.data_ptr(), desc.data_ptr(), n,
+                angle.data_ptr(), desc.data_ptr(), B * n, n,
                 torch.cuda.current_stream(dev).cuda_stream)
         build.check(rc, "orb_describe")
         orb_describe_cuda.launches += 1
@@ -214,11 +258,35 @@ def anchor_cells(img, kp_xy, slots, want, atlas, capacity: int):
     column s % G of the G x G grid). Rows not wanted, or whose slot lies
     outside [0, capacity), write nowhere; `atlas` itself is not written."""
     _check_cells(img, kp_xy, slots, want, atlas, capacity)
-    if img.is_cuda:
-        return anchor_cells_cuda(img, kp_xy, slots, want, atlas, capacity)
-    if img.device.type != "cpu":
+    if img.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"anchor_cells: no kernel for {img.device}")
-    return anchor_cells_plain(img, kp_xy, slots, want, atlas, capacity)
+    return _cells_op(img, kp_xy, slots, want, atlas, int(capacity))
+
+
+@torch.library.custom_op("trackingbench::anchor_cells", mutates_args=())
+def _cells_op(img: torch.Tensor, kp_xy: torch.Tensor, slots: torch.Tensor,
+              want: torch.Tensor, atlas: torch.Tensor,
+              capacity: int) -> torch.Tensor:
+    fn = anchor_cells_cuda if img.is_cuda else anchor_cells_plain
+    return fn(img, kp_xy, slots, want, atlas, capacity)
+
+
+@_cells_op.register_vmap
+def _cells_vmap(info, in_dims, img, kp_xy, slots, want, atlas, capacity):
+    """B sequences, each into a copy of its own atlas: one copy of the
+    (B, A, A) atlases and one launch on CUDA, the plain version per
+    sequence on the CPU."""
+    B = info.batch_size
+    img, kp_xy, slots, want, atlas = (batch.first(t, d, B) for t, d in zip(
+        (img, kp_xy, slots, want, atlas), in_dims[:5]))
+    if img.is_cuda:
+        out = anchor_cells_into_batched(
+            atlas.clone(memory_format=torch.contiguous_format), img, kp_xy,
+            slots, want, capacity)
+    else:
+        out, = batch.loop(anchor_cells_plain, B, img, kp_xy, slots, want,
+                          atlas, capacity)
+    return out, 0
 
 
 def bilinear_cell_patches(img: torch.Tensor, kp_xy: torch.Tensor):
@@ -262,8 +330,9 @@ def _cells_kernel():
     if _cells_fn is None:
         fn = build.load("patch").anchor_cells
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         _cells_fn = fn
     return _cells_fn
@@ -281,17 +350,28 @@ def anchor_cells_into(out, img, kp_xy, slots, want, capacity):
     """The kernel launch of `anchor_cells_cuda`: writes the wanted cells
     into the atlas `out` in place (inputs as `anchor_cells` checks them,
     `out` contiguous)."""
-    if not out.is_contiguous():
-        raise ValueError("out must be contiguous")
+    anchor_cells_into_batched(out[None], img[None], kp_xy[None], slots[None],
+                              want[None], capacity)
+    return out
+
+
+def anchor_cells_into_batched(out, img, kp_xy, slots, want, capacity):
+    """B sequences in one launch: sequence b's wanted cells from img[b]
+    into out[b] in place; out (B, A, A) with contiguous atlases, img (B,
+    H, W), kp_xy (B, N, 2), slots and want (B, N)."""
+    if not (out.stride(-1) == 1 and out.stride(-2) == out.shape[-1]):
+        raise ValueError("out must hold contiguous atlases")
     fn = _cells_kernel()
-    img, kp_xy = img.contiguous(), kp_xy.contiguous()
+    img = batch.rows_contiguous(img)
+    kp_xy = kp_xy.contiguous()
     slots, want = slots.contiguous(), want.contiguous()
-    n = kp_xy.shape[0]
-    if n > 0:
-        h, w = img.shape
-        rc = fn(img.data_ptr(), h, w, *padded_shape(h, w), kp_xy.data_ptr(),
-                slots.data_ptr(), want.data_ptr(), out.data_ptr(),
-                out.shape[0] // CELL, int(capacity), n,
+    B, n = kp_xy.shape[:2]
+    if B * n > 0:
+        h, w = img.shape[1:]
+        rc = fn(img.data_ptr(), img.stride(0), h, w, *padded_shape(h, w),
+                kp_xy.data_ptr(), slots.data_ptr(), want.data_ptr(),
+                out.data_ptr(), out.stride(0), out.shape[-1] // CELL,
+                int(capacity), B * n, n,
                 torch.cuda.current_stream(img.device).cuda_stream)
         build.check(rc, "anchor_cells")
         anchor_cells_cuda.launches += 1

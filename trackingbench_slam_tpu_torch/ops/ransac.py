@@ -23,11 +23,11 @@ def _normalize_points(pts: torch.Tensor):
     mean = pts.mean(0)
     d = torch.linalg.norm(pts - mean, dim=-1).mean() + 1e-9
     s = math.sqrt(2.0) / d
-    T = torch.eye(3, dtype=pts.dtype, device=pts.device)
-    T[0, 0] = s
-    T[1, 1] = s
-    T[0, 2] = -s * mean[0]
-    T[1, 2] = -s * mean[1]
+    # built out of place, so that the function also runs under vmap
+    z, one = torch.zeros_like(s), torch.ones_like(s)
+    T = torch.stack([torch.stack([s, z, -s * mean[0]]),
+                     torch.stack([z, s, -s * mean[1]]),
+                     torch.stack([z, z, one])])
     return (pts - mean) * s, T
 
 
@@ -40,8 +40,7 @@ def _min_eigvec(M: torch.Tensor, iters: int = 4) -> torch.Tensor:
     A = M + eps[..., None, None] * torch.eye(n, dtype=M.dtype,
                                              device=M.device)
     L = cholesky(A, 1e-20)
-    v = torch.full(M.shape[:-1], 1.0 / math.sqrt(n), dtype=M.dtype,
-                   device=M.device)
+    v = torch.full_like(M[..., 0], 1.0 / math.sqrt(n))
     for _ in range(iters):
         w = cholesky_apply(L, v)
         v = w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True),
