@@ -44,25 +44,37 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      frames/s, launches; every pose finite; the CLAHE run's last track-step
      LK call (equalized pyramids) against the plain LK as in phase 3;
   9. loop bench (bench.py's loop_closing_bench): 96 frames of a closed
-     circle, 3 LK tracking levels, BA on; a vocabulary trained on the card's
-     ORB descriptors of every 12th left image; the run without a
-     LoopCloser twice, whose per-frame poses must be torch.equal, and one
-     with it: the closer must close >= 1 loop, its closing error must be
-     < 0.05 m and below the closer-less run's, and every counter must move
-     in the run with the closer;
+     circle, 3 LK tracking levels, BA on, the first and last frame
+     hashing to the JAX record's (trackingbench_slam_tpu_torch/records/
+     jax_full_width.npz, parity.py); a vocabulary trained on the card's
+     ORB descriptors of every 12th left image; run A without a LoopCloser
+     twice, whose per-frame poses must be torch.equal, and run B with it:
+     the closer must close >= 1 loop, its closing error must be < 0.05 m
+     and below the closer-less run's, and every counter must move in the
+     run with the closer; then run C without the closer on the record's
+     RANSAC draws (run A's) and run D with the closer on the record's
+     vocabulary and run B's draws. Each of A-D is held to its JAX run
+     frame by frame (first frame > 1 cm from JAX, lost frames, keyframe
+     and BA frames, loops and relocalizations, closing errors); C and D
+     must hold: until the first frame at which either package flags lost,
+     keyframe and BA frames equal to the record's and positions within
+     1 cm of it;
   10. direct: DirectVO at bench.py's camera and features on the direct
      pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
      ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
+     every frame's position within 1 cm of the JAX record's;
      sparse_image_align and features_align on the run's last call, fenced
      host ms and profiled device ms;
   11. indirect: IndirectVO at the EuRoC operating point (752x480), 12 stereo
-     corridor frames, each of the five match strategies (BoW on a
-     vocabulary trained on the card's ORB of every 3rd left image): ATE
-     < 0.04 m, > 30 last-frame inliers, all four kernels launched;
+     corridor frames, each of the five match strategies (BoW on the JAX
+     record's vocabulary): ATE < 0.04 m, > 30 last-frame inliers, all four
+     kernels launched, every frame's position within 1 cm of the JAX
+     record's run of that strategy;
   12. mono: MonoVO at the main path's camera, features and map, 28 lateral
-     frames: bootstrapped, scale-aligned ATE after it < 0.06 m, > 150 live
-     landmarks, everything finite, LK, FAST and ORB describe launched,
-     BA counted;
+     frames, on the JAX record's RANSAC draws: bootstrapped on the
+     record's frame, scale-aligned ATE after it < 0.06 m, > 150 live
+     landmarks, everything finite, LK, FAST and ORB describe launched, BA
+     counted, every frame's position within 1 cm of the record's;
   13. sequences, the recorded-dataset path, in a temporary directory: (a)
      40 corridor frames written by utils/datasets.py save_corridor_kitti as
      KITTI PNGs (1226x370), every frame decoded by the loader equal to the
@@ -139,9 +151,11 @@ BA_SWEEPS = 11          # readings of each BA solve's iterations/s
 BA_WINDOW = dict(landmarks=4096, keyframes=16, obs=16)   # and their size
 BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
                    "anchor_cells": 9}
-# the JAX package's loop-bench accuracy record (BENCH_r05.json)
-LOOP_RECORD = dict(without_closer_m=0.7764, with_closer_m=0.0085,
-                   loops_closed=2)
+# the loop bench's accuracies on the TPU (BENCH_r05.json, a TPU run of the
+# JAX package); the figures the port is held to are those of the JAX
+# record, trackingbench_slam_tpu_torch/records/jax_full_width.npz
+TPU_LOOP_ACCURACY = dict(without_closer_m=0.7764, with_closer_m=0.0085,
+                         loops_closed=2)
 
 
 def log(msg):
@@ -511,18 +525,27 @@ def run_counted(counters, device, frames, track, warm):
     return fps, {k: fn.launches for k, fn in counters.items()}
 
 
-def drive(vo, frames, counters):
+def drive(vo, frames, counters, rows=None, draws=None):
     """A StereoVO over `frames` (run_counted after an 11-frame warm-up);
     returns (frames/s, launches per counter, the timed frames after which
-    the tracker flagged itself lost)."""
+    the tracker flagged itself lost). `rows` (parity.StereoRows) takes
+    every frame's row; with `draws` (parity.RecordedDraws) the RANSAC
+    draws are the record's."""
     lost = []
 
     def track(i, frame):
+        if draws is not None:
+            draws.at = i
+        if rows is not None:
+            rows.before(vo)
         vo.track(*frame)
+        if rows is not None:
+            rows.after(vo)
         if vo.lost and i >= WARM_FRAMES:
             lost.append(i)
-    return (*run_counted(counters, vo.device, frames, track, WARM_FRAMES),
-            lost)
+    with draws.installed() if draws else contextlib.nullcontext():
+        return (*run_counted(counters, vo.device, frames, track,
+                             WARM_FRAMES), lost)
 
 
 def main_path(cfg, frames, gt, counters, device):
@@ -584,46 +607,63 @@ def first_difference(a, b):
     return first, float((a - b).abs().max())
 
 
-def loop_bench(cfg, frames, gt, counters, device):
+def loop_bench(cfg, frames, gt, counters, device, rec):
     """bench.py's loop_closing_bench on the port: the same frames without
     the closer twice (the second run repeats the first, pose for pose) and
-    with a LoopCloser."""
+    with a LoopCloser (runs A and B, on the card's vocabulary and the
+    port's own draws), then C without the closer on run A's recorded
+    draws and D with the closer on the record's vocabulary and run B's
+    draws. Every run is held to the JAX record (runs A and B of
+    records/jax_full_width.npz) frame by frame."""
     import torch
+    from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
-    from trackingbench_slam_tpu_torch.models.vo import StereoVO
     from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     t0 = time.perf_counter()
     voc, n_desc = train_vocabulary(cfg, frames, device)
     out = dict(vocabulary=dict(descriptors=n_desc, words=voc.num_words,
                                seconds=time.perf_counter() - t0))
+    rec_voc = parity.record_vocabulary(rec, "loop.voc", device)
     trajectories = []
-    for key, with_lc in (("without_closer", False),
-                         ("without_closer_again", False),
-                         ("with_closer", True)):
-        vo = StereoVO(cfg, device=device)
-        if with_lc:
-            vo.loop_closer = LoopCloser(voc, vo.cam, min_score=0.015,
-                                        min_inliers=40, exclude_recent=5)
+    for key, run_voc, prefix, draws in (
+            ("without_closer", None, "loop.A", None),
+            ("without_closer_again", None, "loop.A", None),
+            ("with_closer", voc, "loop.B", None),
+            ("recorded_without_closer", None, "loop.A",
+             parity.RecordedDraws(rec, "loop.A")),
+            ("recorded_with_closer", rec_voc, "loop.B",
+             parity.RecordedDraws(rec, "loop.B"))):
+        with_lc = run_voc is not None
+        vo = parity.loop_bench_tracker(cfg, device, run_voc)
         # where the closer's host time goes, over all 96 frames
         spent, _ = time_methods(vo, ["_track_keyframe_with_loop",
                                      "_finish_loop_detect", "_close_loop",
                                      "_relocalize"] if with_lc else [])
-        if with_lc:
+        if key == "with_closer":
             closer_spent, closer_args = time_methods(vo.loop_closer, [
                 "_issue_verify", "_finish_verify", "correct_trajectory"])
             spent.update(closer_spent)
+        rows = parity.StereoRows()
         t0 = time.perf_counter()
-        fps, launches, lost = drive(vo, frames, counters)
+        fps, launches, lost = drive(vo, frames, counters, rows, draws)
         wall = time.perf_counter() - t0
-        if not with_lc:
+        if key.startswith("without_closer"):
             trajectories.append(torch.stack(vo.trajectory))
+        arrays = rows.arrays(vo)
         out[key] = dict(
-            fps=fps, closing_err_m=closing_error(vo.poses(), gt),
+            fps=fps, closing_err_m=closing_error(arrays["poses"], gt),
             loops_closed=len(vo.loop_events), loop_events=vo.loop_events,
             reloc_events=vo.reloc_events, lost_frames=lost,
             ba_calls=vo.ba_calls, launches=launches, run_s=wall,
-            host_s_in=spent)
+            host_s_in=spent,
+            parity=parity.compare_stereo(rec, prefix, arrays),
+            rows=dict({k: np.asarray(arrays[k]).tolist() for k in (
+                "inliers", "lost", "keyframe", "ba", "landmarks")},
+                centres=parity.centres(arrays["T_cw"]).tolist()))
+        if draws is not None:
+            out[key].update(draws_used=draws.used,
+                            draws_missing=draws.missing)
     first, diff = first_difference(*trajectories)
     out["repeat"] = dict(identical=first is None, first_frame_differing=first,
                          max_pose_diff=diff)
@@ -638,6 +678,26 @@ def loop_bench(cfg, frames, gt, counters, device):
         sync(device)
         out["with_closer"]["correct_trajectory_again_s"].append(
             time.perf_counter() - t0)
+    return out
+
+
+def record_frames_agree(rec, name, frames):
+    """The first and last frame rendered here hash to the record's."""
+    from trackingbench_slam_tpu_torch import parity
+    got = [parity.frame_sha(frames[0]), parity.frame_sha(frames[-1])]
+    if got != rec[f"{name}.frame_sha"].tolist():
+        raise AssertionError(f"{name}: frames differ from the record's "
+                             f"(sha256 {got})")
+
+
+def held_poses(rec, prefix, poses):
+    """parity.compare_poses of a run against its record, without the
+    per-frame distances; `held` when every frame is within 1 cm."""
+    from trackingbench_slam_tpu_torch import parity
+    out = parity.compare_poses(poses, rec[f"{prefix}.T_cw"])
+    out.pop("diff_m")
+    out["held"] = (out["first_parting"] is None
+                   and out["frames"] == len(rec[f"{prefix}.T_cw"]))
     return out
 
 
@@ -718,10 +778,10 @@ def profile_calls(fn, device, reps=3):
                                 / reps] for e in top])
 
 
-def direct_phase(counters, device):
+def direct_phase(counters, device, rec):
     """DirectVO at bench.py's camera on the reference's direct pyramid: 24
     corridor frames, stereo on the first only, so every later landmark is a
-    promoted depth-filter seed."""
+    promoted depth-filter seed; held to the JAX record frame by frame."""
     from trackingbench_slam_tpu_torch.matchers import direct
     from trackingbench_slam_tpu_torch.models import direct_vo
     from trackingbench_slam_tpu_torch.utils import metrics
@@ -729,8 +789,9 @@ def direct_phase(counters, device):
                                                              direct_frames)
     cfg = direct_config()
     t0 = time.perf_counter()
-    frames, gt = direct_frames(cfg)
+    frames, gt = direct_frames(cfg, len(rec["direct.T_cw"]))
     render_s = time.perf_counter() - t0
+    record_frames_agree(rec, "direct", frames)
     vo = direct_vo.DirectVO(cfg, device=device)
     with watched(direct_vo, "lk_pyramidal",
                  lambda a, k: k.get("half") == 6) as seed, \
@@ -745,7 +806,10 @@ def direct_phase(counters, device):
                render_s=render_s,
                ate_m=metrics.ate_rmse(poses, gt, align=True),
                num_tracked=vo.num_tracked, num_promoted=vo.num_promoted,
-               finite=bool(np.isfinite(poses).all()), launches=launches)
+               finite=bool(np.isfinite(poses).all()), launches=launches,
+               parity=dict(held_poses(rec, "direct", poses),
+                           jax_tracked=int(rec["direct.tracked"][-1]),
+                           jax_promoted=int(rec["direct.promoted"][-1])))
     # the two direct stages on the run's last call, fenced and profiled
     for key, (module_fn, call) in {"sparse_image_align": (
             direct.sparse_image_align, sia), "features_align": (
@@ -780,25 +844,27 @@ def indirect_calls(stack, cfg):
                              True)}.items()}
 
 
-def indirect_phase(counters, device):
+def indirect_phase(counters, device, rec):
     """IndirectVO at the EuRoC operating point (752x480, 2000 features, 5
     levels x0.8), 12 stereo corridor frames, each of the five strategies;
-    BoW on a vocabulary trained on the card's ORB of every 3rd left image.
-    Returns (figures, the kernel calls of the first strategy's run)."""
+    BoW on the JAX record's vocabulary (trained on the JAX package's ORB of
+    every 3rd left image); every run held to its JAX record frame by
+    frame. Returns (figures, the kernel calls of the first strategy's
+    run)."""
+    from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.models.indirect_vo import (
         IndirectVO, MatchStrategy)
-    from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils import metrics
     from trackingbench_slam_tpu_torch.utils.config import euroc_stereo_config
     from trackingbench_slam_tpu_torch.utils.corridor import indirect_frames
     cfg = euroc_stereo_config()
     t0 = time.perf_counter()
-    frames, gt = indirect_frames(cfg)
+    frames, gt = indirect_frames(cfg, len(rec["indirect.nn.T_cw"]))
     out = dict(render_s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    voc, n_desc = train_vocabulary(cfg, frames, device, every=3)
-    out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
-                             seconds=time.perf_counter() - t0)
+    record_frames_agree(rec, "indirect", frames)
+    voc = parity.record_vocabulary(rec, "indirect.voc", device)
+    out["vocabulary"] = dict(descriptors=int(rec["indirect.voc.descriptors"]),
+                             words=voc.num_words, source="JAX record")
     calls = None
     for s in MatchStrategy:
         vo = IndirectVO(cfg, s, voc=voc if s is MatchStrategy.BOW else None,
@@ -813,7 +879,10 @@ def indirect_phase(counters, device):
             frames=len(frames), timed=len(frames) - 1, fps=fps,
             ate_m=metrics.ate_rmse(poses, gt, align=True),
             last_inliers=int(vo.state.num_inliers),
-            finite=bool(np.isfinite(poses).all()), launches=launches)
+            finite=bool(np.isfinite(poses).all()), launches=launches,
+            parity=dict(held_poses(rec, f"indirect.{s.value}", poses),
+                        jax_last_inliers=int(
+                            rec[f"indirect.{s.value}.inliers"][-1])))
     missing = [k for k, v in calls.items() if not v]
     if missing:
         raise AssertionError(f"indirect: calls not seen: {missing}")
@@ -834,27 +903,41 @@ def indirect_phase(counters, device):
     return out, cases
 
 
-def mono_phase(counters, device):
+def mono_phase(counters, device, rec):
     """MonoVO at the main path's camera, pyramid, features and map: 28
-    lateral corridor frames, left images only."""
+    lateral corridor frames, left images only, on the JAX record's RANSAC
+    draws (bootstrap and track steps); held to the record frame by
+    frame."""
+    from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.models import mono_vo
     from trackingbench_slam_tpu_torch.utils import metrics
     from trackingbench_slam_tpu_torch.utils.corridor import (mono_config,
                                                              mono_frames)
     cfg = mono_config()
     t0 = time.perf_counter()
-    frames, gt = mono_frames(cfg)
+    frames, gt = mono_frames(cfg, len(rec["mono.T_cw"]))
     render_s = time.perf_counter() - t0
+    record_frames_agree(rec, "mono", frames)
     vo = mono_vo.MonoVO(cfg, min_parallax_px=20.0, device=device)
+    draws = parity.RecordedDraws(rec, "mono")
+
+    def track(i, f):
+        draws.at = i
+        vo.track(f)
     with watched(mono_vo, "lk_pyramidal", lambda a, k: k.get(
-            "num_levels") == 1 and k.get("iters") == 10) as back:
-        fps, launches = run_counted(counters, device, frames,
-                                    lambda i, f: vo.track(f), WARM_MONO)
+            "num_levels") == 1 and k.get("iters") == 10) as back, \
+            draws.installed():
+        fps, launches = run_counted(counters, device, frames, track,
+                                    WARM_MONO)
     poses = vo.poses()
     fig = dict(frames=len(frames), timed=len(frames) - WARM_MONO, fps=fps,
                render_s=render_s, initialized=vo.initialized,
                finite=bool(np.isfinite(poses).all()), launches=launches,
-               keyframes=vo.kf_count, ba_calls=vo.ba_calls)
+               keyframes=vo.kf_count, ba_calls=vo.ba_calls,
+               parity=dict(held_poses(rec, "mono", poses),
+                           draws_used=draws.used,
+                           draws_missing=draws.missing,
+                           jax_init_frame=int(rec["mono.init_frame"])))
     if vo.initialized:
         m = vo.state.map
         k0 = next(i for i in range(1, len(frames))
@@ -1782,6 +1865,7 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import trackingbench_slam_tpu_torch  # noqa: F401  (precision pins)
+    from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.kernel_bench import kernel_inputs
     from trackingbench_slam_tpu_torch.ops.cuda import (build, fast_kernel,
                                                        lk_kernel,
@@ -1796,6 +1880,7 @@ def main():
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    rec = parity.load_record()
     build_s, reports = build.timed_build_all()
     for name in build.SOURCES:
         build.load(name)
@@ -1941,7 +2026,8 @@ def main():
     lcfg = loop_bench_config()
     t0 = time.perf_counter()
     lframes, lgt, _ = loop_frames(lcfg, LOOP_FRAMES)
-    loop = loop_bench(lcfg, lframes, lgt, counters, dev)
+    record_frames_agree(rec, "loop", lframes)
+    loop = loop_bench(lcfg, lframes, lgt, counters, dev, rec)
     loop["render_s"] = time.perf_counter() - t0 - loop["vocabulary"][
         "seconds"]
     wo, wi = loop["without_closer"], loop["with_closer"]
@@ -1960,10 +2046,37 @@ def main():
                     for k, v in wi["host_s_in"].items())
         + "; the last correct_trajectory again: "
         + ", ".join(f"{t:.3f}" for t in wi["correct_trajectory_again_s"])
-        + " s "
-        f"(JAX record: {LOOP_RECORD['without_closer_m']} m without, "
-        f"{LOOP_RECORD['with_closer_m']} m with, "
-        f"{LOOP_RECORD['loops_closed']} loops)")
+        + " s (JAX record: "
+        f"{float(rec['loop.A.closing_err_m']):.4f} m without, "
+        f"{float(rec['loop.B.closing_err_m']):.4f} m with, loops at "
+        f"{rec['loop.B.loops'].tolist()}; the TPU's accuracies "
+        f"(BENCH_r05.json): {TPU_LOOP_ACCURACY['without_closer_m']} m "
+        f"without, {TPU_LOOP_ACCURACY['with_closer_m']} m with, "
+        f"{TPU_LOOP_ACCURACY['loops_closed']} loops)")
+    for key, run in (("without_closer", "A"), ("with_closer", "B"),
+                     ("recorded_without_closer", "C"),
+                     ("recorded_with_closer", "D")):
+        fig, par = loop[key], loop[key]["parity"]
+        log(f"[loop parity {run}] {key.replace('_', ' ')}"
+            + (f" on the record's draws ({fig['draws_used']} used, "
+               f"{fig['draws_missing']} missing)" if "draws_used" in fig
+               else "")
+            + f": first frame > 1 cm from JAX {par['first_parting']}, "
+            f"first lost frame (either) {par['first_lost']}, max distance "
+            f"until then {par['max_diff_until_lost_m']:.5f} m (over the "
+            f"run {par['max_diff_m']:.4f} m); keyframes equal until lost "
+            f"{par['keyframes_equal_until_lost']} (all "
+            f"{par['keyframes_equal']}), BA equal until lost "
+            f"{par['ba_equal_until_lost']} (all {par['ba_equal']}); lost "
+            f"port {par['lost_port']} jax {par['lost_jax']}; loops port "
+            f"{par['loops_port']} jax {par['loops_jax']}; relocalizations "
+            f"port {par['relocs_port']} jax {par['relocs_jax']}; closing "
+            f"error port {par['closing_err_port_m']:.4f} m jax "
+            f"{par['closing_err_jax_m']:.4f} m; held {par['held']}")
+    for key in ("recorded_without_closer", "recorded_with_closer"):
+        if not loop[key]["parity"]["held"]:
+            raise AssertionError(f"loop bench {key}: not held to the JAX "
+                                 f"record: {loop[key]['parity']}")
     rep = loop["repeat"]
     wo2 = loop["without_closer_again"]
     log(f"[loop bench repeat] the closer-less run again on the same frames: "
@@ -1981,7 +2094,7 @@ def main():
             and wi["closing_err_m"] < wo["closing_err_m"]):
         raise AssertionError(f"loop bench failed its gates: {loop}")
 
-    direct, seed_case = direct_phase(counters, dev)
+    direct, seed_case = direct_phase(counters, dev, rec)
     log(f"[direct] {direct['frames']} frames 1226x370, stereo on the first "
         f"only, {direct['timed']} timed: {direct['fps']:.2f} frames/s, ATE "
         f"{direct['ate_m']:.5f} m, tracked {direct['num_tracked']}, promoted "
@@ -1992,13 +2105,21 @@ def main():
         f"features_align {direct['features_align']['host_ms']:.1f} / "
         f"{direct['features_align']['device_ms']:.3f} ms in "
         f"{direct['features_align']['cuda_kernels']:.0f} kernels a call")
+    dp = direct["parity"]
+    log(f"[direct parity] against the JAX record: first frame > 1 cm "
+        f"{dp['first_parting']}, max distance {dp['max_diff_m']:.5f} m over "
+        f"{dp['frames']} frames; tracked {direct['num_tracked']} (JAX "
+        f"{dp['jax_tracked']}), promoted {direct['num_promoted']} (JAX "
+        f"{dp['jax_promoted']}); held {dp['held']}")
     gate_launches("direct", direct["launches"],
                   ("lk_align", "fast_score_nms"))
+    if not dp["held"]:
+        raise AssertionError(f"direct: not held to the JAX record: {dp}")
     if not (direct["ate_m"] < 0.05 and direct["num_tracked"] > 40
             and direct["num_promoted"] > 50 and direct["finite"]):
         raise AssertionError(f"direct failed its gates: {direct}")
 
-    indirect, indirect_cases = indirect_phase(counters, dev)
+    indirect, indirect_cases = indirect_phase(counters, dev, rec)
     for s, fig in indirect.items():
         if s in ("render_s", "vocabulary"):
             continue
@@ -2006,20 +2127,38 @@ def main():
             f"{fig['timed']} timed: {fig['fps']:.2f} frames/s, ATE "
             f"{fig['ate_m']:.5f} m, last-frame inliers {fig['last_inliers']},"
             f" launches {fig['launches']}")
+        ip = fig["parity"]
+        log(f"[indirect {s} parity] against the JAX record: first frame "
+            f"> 1 cm {ip['first_parting']}, max distance "
+            f"{ip['max_diff_m']:.5f} m over {ip['frames']} frames; "
+            f"last-frame inliers JAX {ip['jax_last_inliers']}; held "
+            f"{ip['held']}")
         gate_launches(f"indirect {s}", fig["launches"], tuple(counters))
+        if not ip["held"]:
+            raise AssertionError(f"indirect {s}: not held to the JAX "
+                                 f"record: {ip}")
         if not (fig["ate_m"] < 0.04 and fig["last_inliers"] > 30
                 and fig["finite"]):
             raise AssertionError(f"indirect {s} failed its gates: {fig}")
 
-    mono, back_case = mono_phase(counters, dev)
+    mono, back_case = mono_phase(counters, dev, rec)
     log(f"[mono] {mono['frames']} frames 1226x370, {mono['timed']} timed: "
         f"{mono['fps']:.2f} frames/s, initialized {mono['initialized']} at "
         f"frame {mono.get('init_frame')}, scale-aligned ATE "
         f"{mono.get('ate_m', float('nan')):.5f} m, live landmarks "
         f"{mono.get('landmarks')}, keyframes {mono['keyframes']}, BA calls "
         f"{mono['ba_calls']}, launches {mono['launches']}")
+    mp = mono["parity"]
+    log(f"[mono parity] on the record's draws ({mp['draws_used']} used, "
+        f"{mp['draws_missing']} missing), against the JAX record: "
+        f"bootstrapped at frame {mono.get('init_frame')} (JAX "
+        f"{mp['jax_init_frame']}), first frame > 1 cm "
+        f"{mp['first_parting']}, max distance {mp['max_diff_m']:.5f} m over "
+        f"{mp['frames']} frames; held {mp['held']}")
     gate_launches("mono", mono["launches"], ("lk_align", "fast_score_nms",
                                              "orb_describe"))
+    if not (mp["held"] and mono.get("init_frame") == mp["jax_init_frame"]):
+        raise AssertionError(f"mono: not held to the JAX record: {mp}")
     if not mono["initialized"]:
         raise AssertionError(f"mono never bootstrapped: {mono}")
     if not (mono["ate_m"] < 0.06
@@ -2207,6 +2346,10 @@ def main():
              "loop_bench_without_closer": wo["launches"],
              "loop_bench_without_closer_again": wo2["launches"],
              "loop_bench_with_closer": wi["launches"],
+             "loop_bench_recorded_without_closer":
+                 loop["recorded_without_closer"]["launches"],
+             "loop_bench_recorded_with_closer":
+                 loop["recorded_with_closer"]["launches"],
              "direct": direct["launches"],
              **{f"indirect_{s}": fig["launches"]
                 for s, fig in indirect.items()
@@ -2248,7 +2391,7 @@ def main():
               "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
               "prefetch": prefetch, "offline": offline,
               "photometric": photometric,
-              "loop_bench": dict(loop, jax_record=LOOP_RECORD),
+              "loop_bench": dict(loop, tpu_accuracy=TPU_LOOP_ACCURACY),
               "direct": direct, "indirect": indirect, "mono": mono,
               "sequences": seqs, "batched": batched, "ba": ba,
               "seconds": time.perf_counter() - t_start}

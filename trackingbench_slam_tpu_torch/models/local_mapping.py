@@ -202,11 +202,12 @@ def sharded_solve(cam: cam_mod.CameraParams, problem: GroupedBAProblem,
 def track_keyframe_ba_step(state, img_left: torch.Tensor,
                            img_right: torch.Tensor,
                            cam: cam_mod.CameraParams, cfg: PipelineConfig,
-                           generator: torch.Generator | None = None):
+                           generator: torch.Generator | None = None,
+                           uniform: torch.Tensor | None = None):
     """track_step + keyframe_step + local_ba_step, for the keyframes on the
     BA cadence."""
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
     state = vo_mod.track_and_keyframe_step(state, img_left, img_right, cam,
-                                           cfg, generator)
+                                           cfg, generator, uniform)
     with _stage("keyframe.local_ba_step"):
         return local_ba_step(state, cam, cfg)

@@ -115,7 +115,8 @@ def track_keyframe_register_step(state, img_left, img_right, cam, cfg,
                                  used_after: int, do_ba: bool,
                                  exclude_recent: int, top_k: int,
                                  sparse: bool,
-                                 generator: torch.Generator | None = None):
+                                 generator: torch.Generator | None = None,
+                                 uniform: torch.Tensor | None = None):
     """track + keyframe (+ BA) + BoW register/query. db_a/db_b are the
     database tables (dense: vectors/None; sparse: words/weights).
 
@@ -124,10 +125,10 @@ def track_keyframe_register_step(state, img_left, img_right, cam, cfg,
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
     if do_ba:
         state = local_mapping.track_keyframe_ba_step(
-            state, img_left, img_right, cam, cfg, generator)
+            state, img_left, img_right, cam, cfg, generator, uniform)
     else:
         state = vo_mod.track_and_keyframe_step(state, img_left, img_right,
-                                               cam, cfg, generator)
+                                               cam, cfg, generator, uniform)
     f = state.prev
     with torch.profiler.record_function("keyframe.bow_register_query"):
         if sparse:

@@ -341,10 +341,11 @@ def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
 
 def track_and_keyframe_step(state: VOState, img_left, img_right,
                             cam: cam_mod.CameraParams, cfg: PipelineConfig,
-                            generator: torch.Generator | None = None
+                            generator: torch.Generator | None = None,
+                            uniform: torch.Tensor | None = None
                             ) -> VOState:
     with _stage("track_step"):
-        state = track_step(state, img_left, cam, cfg, generator)
+        state = track_step(state, img_left, cam, cfg, generator, uniform)
     with _stage("keyframe_step"):
         return keyframe_step(state, img_right, cam, cfg)
 
