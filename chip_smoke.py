@@ -4,7 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure ends the run with a non-zero exit:
+Phases, one line each; any failure ends the run with a non-zero exit.
+Every phase that times something on the host clock or with CUDA events
+runs before the first torch.profiler session of the process (PHASES):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA kernel (csrc/*.cu), one nvcc each, in parallel;
   3. kernel checks: each kernel against its plain PyTorch version on the
@@ -64,7 +66,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
      every frame's position within 1 cm of the JAX record's;
      sparse_image_align and features_align on the run's last call, fenced
-     host ms and profiled device ms;
+     host ms (device ms in phase 16);
   11. indirect: IndirectVO at the EuRoC operating point (752x480), 12 stereo
      corridor frames, each of the five match strategies (BoW on the JAX
      record's vocabulary): ATE < 0.04 m, > 30 last-frame inliers, all four
@@ -110,8 +112,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      image's u of the rows whose keypoint both runs share (flags >= 99%,
      within 1e-3 px, >= 50 rows a sequence); hand-kernel launches of a
      batched step equal to a serial step's (the keyframe step one stereo
-     LK more: both sides of the stereo-prior branch run); CUDA kernels of a
-     batched track step <= 1.5x the B = 1 step's (torch.profiler); bench.py
+     LK more: both sides of the stereo-prior branch run); bench.py
      dp_eval_bench's B1 and B8 sequence-frames/s; every batched kernel call
      against its plain version per sequence as in phase 3 (the anchor
      cells on the atlases from before the step's launch, and the atlases
@@ -120,7 +121,26 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      median of 11 readings, one-device and distributed on a world of one
      over NCCL, alternating; both distributed solves against bundle_adjust_grouped /
      bundle_adjust: poses and points within 5e-4;
-  15. a `kernels` JSON line (launches on every path), the script's seconds,
+  15. main path, BA on, again, the last timed phase: frames/s beside the
+     first BA-on run's, poses torch.equal to it, the same launches;
+  16. profiles, under torch.profiler: (a) each kernel's phase-3 calls
+     through its public entry point (the custom op), ATTRIBUTION_CALLS a
+     case, inside the models/vo.py range that makes the call (LK track,
+     stereo and anchored; FAST and ORB describe in keyframe.extract_orb;
+     anchor cells): one device event a call, whose ms a call agree with
+     phase 3's CUDA-event ms within ATTRIBUTION_TOL, and the custom op's
+     and the range's device time each holding it; every other checked
+     kernel call's device ms under the profiler; (b) a fresh BA-on
+     StereoVO's frame 14 (a keyframe): every range of KERNEL_RANGES
+     holds device time of its kernels' custom ops; (c) phase 10's two
+     direct stages: device ms and CUDA kernels a call; (d) phase 14's
+     track steps: CUDA kernels of a batched track step <= 1.5x the B = 1
+     step's;
+  17. profiler history: `python -m trackingbench_slam_tpu_torch.
+     profile_main_path --history` in a child process on the same card
+     (three fresh BA-on main-path runs, one torch.profiler session, three
+     more), its frames/s on both sides;
+  18. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -128,6 +148,7 @@ Imports nothing of JAX. Needs the package beside it: run from a checkout.
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -156,10 +177,102 @@ BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
 # record, trackingbench_slam_tpu_torch/records/jax_full_width.npz
 TPU_LOOP_ACCURACY = dict(without_closer_m=0.7764, with_closer_m=0.0085,
                          loops_closed=2)
+ATTRIBUTION_CALLS = 5   # eager calls of each kernel case under the profiler
+ATTRIBUTION_TOL = 0.25  # profiler device time a call against CUDA events
+# main()'s phases in the order it runs them. "timed" phases take figures on
+# the host clock or from CUDA events (frames/s, fenced ms, kernel times);
+# "profiled" ones run torch.profiler in this process; "child" runs in a
+# process of its own. A profiler session leaves the process slower for a
+# while after it ends (PERF.md), so every timed phase comes before
+# the first profiled one: `PhaseOrder.enter` holds main() to this order,
+# and `PhaseOrder.profiled` runs the profiler only inside a profiled phase.
+PHASES = (
+    ("build", "setup"),
+    ("kernel checks", "timed"),
+    ("main path, BA off", "timed"),
+    ("main path, BA on", "timed"),
+    ("prefetch", "timed"),
+    ("offline", "timed"),
+    ("photometric", "timed"),
+    ("loop bench", "timed"),
+    ("direct", "timed"),
+    ("indirect", "timed"),
+    ("mono", "timed"),
+    ("sequences", "timed"),
+    ("recorded kernel checks", "timed"),
+    ("batched", "timed"),
+    ("BA", "timed"),
+    ("main path, BA on, again", "timed"),
+    ("profiles", "profiled"),
+    ("profiler history", "child"),
+)
+
+
+class PhaseOrder:
+    """main()'s position in `phases` ((name, kind) pairs). `probe()`, where
+    given, is read on entering each phase; its readings are kept in
+    `probes`."""
+
+    def __init__(self, phases=PHASES, probe=None):
+        self.phases = phases
+        self.at = -1
+        self.probe = probe
+        self.probes = []
+        self.t0 = time.perf_counter()
+
+    def enter(self, name):
+        names = [n for n, _ in self.phases]
+        if name not in names[self.at + 1:]:
+            raise AssertionError(f"phase {name!r} out of the declared order "
+                                 f"(after {names[self.at]!r})")
+        self.at = names.index(name, self.at + 1)
+        if self.probe is not None:
+            reading = dict(phase=name,
+                           at_s=time.perf_counter() - self.t0,
+                           **self.probe())
+            self.probes.append(reading)
+            log(f"[phase] {name}: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in reading.items() if k != "phase"))
+
+    @property
+    def kind(self):
+        return self.phases[self.at][1] if self.at >= 0 else None
+
+    def profiled(self, fn):
+        """profile_main_path.profiled(fn), only inside a profiled phase."""
+        from trackingbench_slam_tpu_torch.profile_main_path import profiled
+        if self.kind != "profiled":
+            raise AssertionError(f"a profiler session in the {self.kind} "
+                                 f"phase {self.phases[self.at][0]!r}")
+        return profiled(fn)
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def process_probe():
+    """What the process carries into a phase: one small op's launch in host
+    microseconds, a fixed pure-Python loop's host ms (how fast the host
+    runs just then), threads, resident MB, objects the garbage collector
+    tracks, and the CUDA caching allocator's segments and reserved MB."""
+    import gc
+    import threading
+    import torch
+    from trackingbench_slam_tpu_torch.profile_main_path import (launch_us,
+                                                                python_ms)
+    with open("/proc/self/status") as fh:
+        status = dict(line.split(":", 1) for line in fh if ":" in line)
+    stats = torch.cuda.memory_stats()
+    return dict(launch_us=launch_us(), python_ms=python_ms(),
+                threads=int(status["Threads"]),
+                python_threads=threading.active_count(),
+                rss_mb=int(status["VmRSS"].split()[0]) / 1024,
+                gc_objects=len(gc.get_objects()),
+                segments=stats.get("segment.all.current", 0),
+                reserved_mb=stats.get("reserved_bytes.all.current", 0)
+                / 2 ** 20)
 
 
 def nvidia_smi_line():
@@ -308,7 +421,9 @@ def check_fast(pyr, threshold, arc, where="main path"):
     b, by = bound(sum(h * w for h, w in shapes) * 8, fast_flops(shapes))
     return [dict(case=f"{where}: {len(pyr)}-level ORB pyramid, one launch",
                  levels=levels, max_abs_err=err, ms=ms, host_ms=host_ms,
-                 plain_ms=plain_ms, bound_ms=b, bound_by=by)]
+                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                 _call=functools.partial(fast_kernel.fast_score_nms_cuda, pyr,
+                                         threshold, arc))]
 
 
 # ORB describe per valid point: two multiply-adds for each of the circle's
@@ -401,7 +516,9 @@ def check_orb_describe(case, where="main path bootstrap keyframe"):
                  valid=n_valid, counts=list(counts), bins_agree=bins_agree,
                  also_checked="every 7th row invalid",
                  max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                 bound_ms=b, bound_by=by, library_ms=None)]
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 _call=functools.partial(patch_kernel.orb_describe_cuda,
+                                         *args))]
 
 
 def check_anchor_cells(case, where="bootstrap keyframe"):
@@ -453,7 +570,10 @@ def check_anchor_cells(case, where="bootstrap keyframe"):
                  n=n, cells=n_ok, max_abs_err=err, ms=ms, host_ms=host_ms,
                  call_ms=call_ms, clone_ms=clone_ms, plain_ms=plain_ms,
                  bound_ms=b, bound_by=by, library_ms=library_ms,
-                 library_max_abs_diff=library_diff)]
+                 library_max_abs_diff=library_diff,
+                 _call=functools.partial(patch_kernel.anchor_cells_into,
+                                         scratch, img, kp_xy, slots, want,
+                                         cap))]
 
 
 def check_lk(cases):
@@ -498,7 +618,9 @@ def check_lk(cases):
                         work=dict(points_run=[int(lv["run"].sum())
                                               for lv in work["levels"]],
                                   templates=work["templates"],
-                                  iterations=work["iterations"])))
+                                  iterations=work["iterations"]),
+                        _call=functools.partial(lk_kernel.lk_align_cuda,
+                                                *args, **kw)))
     return out
 
 
@@ -754,34 +876,39 @@ def gate_launches(name, launches, expected):
         raise AssertionError(f"{name}: kernels not launched: {missing}")
 
 
-def profile_calls(fn, device, reps=3):
-    """fn()'s fenced host ms, device ms (the kernels it launched, under
-    torch.profiler), CUDA kernels, and the five kernels with the most
-    device time (name, ms), each per call."""
-    from trackingbench_slam_tpu_torch.profile_main_path import (
-        device_events, profiled)
+def fenced_ms(fn, device, reps=3):
+    """fn()'s host ms a call, fenced, after one warm-up call."""
     fn()
     sync(device)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     sync(device)
-    host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    avgs, _ = profiled(lambda: [fn() for _ in range(reps)])
-    device_ev = device_events(avgs)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_call(phases, fn):
+    """One call of fn() under torch.profiler, after a warm-up call: the
+    device ms of the kernels it launched, their count, and the five kernels
+    with the most device time (name, ms)."""
+    from trackingbench_slam_tpu_torch.profile_main_path import device_events
+    fn()
+    prof, _ = phases.profiled(fn)
+    device_ev = device_events(prof.key_averages())
     top = sorted(device_ev, key=lambda e: -e.self_device_time_total)[:5]
-    return dict(host_ms=host_ms,
-                device_ms=sum(e.self_device_time_total
-                              for e in device_ev) / 1e3 / reps,
-                cuda_kernels=sum(e.count for e in device_ev) / reps,
-                top_device_ms=[[e.key[:100], e.self_device_time_total / 1e3
-                                / reps] for e in top])
+    return dict(device_ms=sum(e.self_device_time_total
+                              for e in device_ev) / 1e3,
+                cuda_kernels=sum(e.count for e in device_ev),
+                top_device_ms=[[e.key[:100], e.self_device_time_total / 1e3]
+                               for e in top])
 
 
 def direct_phase(counters, device, rec):
     """DirectVO at bench.py's camera on the reference's direct pyramid: 24
     corridor frames, stereo on the first only, so every later landmark is a
-    promoted depth-filter seed; held to the JAX record frame by frame."""
+    promoted depth-filter seed; held to the JAX record frame by frame.
+    Returns (figures, the seed LK call as a check_lk case, the run's last
+    sparse_image_align and features_align calls to profile)."""
     from trackingbench_slam_tpu_torch.matchers import direct
     from trackingbench_slam_tpu_torch.models import direct_vo
     from trackingbench_slam_tpu_torch.utils import metrics
@@ -810,13 +937,17 @@ def direct_phase(counters, device, rec):
                parity=dict(held_poses(rec, "direct", poses),
                            jax_tracked=int(rec["direct.tracked"][-1]),
                            jax_promoted=int(rec["direct.promoted"][-1])))
-    # the two direct stages on the run's last call, fenced and profiled
+    # the two direct stages on the run's last call: fenced here, profiled
+    # in the profiles phase
+    stages = {}
     for key, (module_fn, call) in {"sparse_image_align": (
             direct.sparse_image_align, sia), "features_align": (
             direct.features_align, fa)}.items():
         args, kwargs = call[0]
-        fig[key] = profile_calls(lambda: module_fn(*args, **kwargs), device)
-    return fig, lk_case("direct seed, half 6, 2 levels, prior", seed[0])
+        stages[key] = functools.partial(module_fn, *args, **kwargs)
+        fig[key] = dict(host_ms=fenced_ms(stages[key], device))
+    return fig, lk_case("direct seed, half 6, 2 levels, prior",
+                        seed[0]), stages
 
 
 def indirect_calls(stack, cfg):
@@ -1341,7 +1472,8 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
     serial step's, the CUDA kernels of a batched track step against the
     B = 1 step's, and bench.py's dp_eval_bench (one state broadcast,
     DP_STEPS steps, fenced) at B = 1 and B = BATCH. Returns (figures,
-    the batched kernel calls recorded)."""
+    the batched kernel calls recorded, one track step at B = BATCH, at
+    B = 1 and serially, for the profiles phase)."""
     import torch
     from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
@@ -1439,20 +1571,17 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
     t0 = time.perf_counter()
     mixed = mixed_branch_keyframe(cfg, cam, up, serial_track, gens())
     spent["mixed_branch_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    # CUDA kernels of one track step: B = BATCH, B = 1, and the serial step
+    # one track step at B = BATCH, at B = 1 and serially, for the profiles
+    # phase to count their CUDA kernels
     u8 = dp_eval.draw_uniform(gens(), cfg)
     imgs8 = torch.stack([seq[1][0] for seq in up]).float()
     st8 = dp_eval.stack_states(boot)
     st1 = dp_eval.stack_states(boot[:1])
-    prof = dict(
-        batched=profile_calls(lambda: dp_eval.dp_track_step(
-            st8, imgs8, cam, cfg, u8), device, reps=1),
-        b1=profile_calls(lambda: dp_eval.dp_track_step(
-            st1, imgs8[:1], cam, cfg, u8[:1]), device, reps=1),
-        serial=profile_calls(lambda: vo_mod.track_step(
-            boot[0], up[0][1][0], cam, cfg, uniform=u8[0]), device, reps=1))
-    spent["profile_s"] = time.perf_counter() - t0
+    track_steps = dict(
+        batched=lambda: dp_eval.dp_track_step(st8, imgs8, cam, cfg, u8),
+        b1=lambda: dp_eval.dp_track_step(st1, imgs8[:1], cam, cfg, u8[:1]),
+        serial=lambda: vo_mod.track_step(boot[0], up[0][1][0], cam, cfg,
+                                         uniform=u8[0]))
     t0 = time.perf_counter()
     # bench.py dp_eval_bench: StereoVO over frames 0-2, its state broadcast
     base = vo_mod.StereoVO(cfg, device=device)
@@ -1488,13 +1617,10 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
                mixed_branch=mixed,
                serial_launches=serial_launches,
                batched_launches=batched_launches,
-               cuda_kernels_per_track_step={k: v["cuda_kernels"]
-                                            for k, v in prof.items()},
-               track_step_profile=prof,
                seq_frames_per_s=rates,
                batch_speedup=rates[f"B{BATCH}"] / rates["B1"],
                spent=spent, seconds=time.perf_counter() - t_phase)
-    return fig, calls
+    return fig, calls, track_steps
 
 
 def mixed_branch_keyframe(cfg, cam, up, tracked, generators):
@@ -1626,7 +1752,9 @@ def check_batched(calls):
                  "launch", batch=B, n=n, levels=len(prev), converged=n_both,
             flags_agree=agree,
             max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=None))
+            bound_ms=bms, bound_by=by, library_ms=None,
+            _call=functools.partial(lk_kernel.lk_align_cuda_batched, *args,
+                                    **kw)))
     for (imgs, threshold, arc), _ in calls["fast"]:
         B = imgs[0].shape[0]
         got = fast_kernel.fast_score_nms_cuda_batched(imgs, threshold, arc)
@@ -1647,7 +1775,9 @@ def check_batched(calls):
             case=f"batched keyframe, B={B} x {len(imgs)}-level ORB pyramid, "
                  "one launch", batch=B, max_abs_err=0.0, ms=ms,
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=None))
+            library_ms=None,
+            _call=functools.partial(fast_kernel.fast_score_nms_cuda_batched,
+                                    imgs, threshold, arc)))
     for (raw, blurred, xy, valid, counts), _ in calls["orb"]:
         B, n = xy.shape[:2]
         got_a, got_d = patch_kernel.orb_describe_cuda_batched(
@@ -1670,7 +1800,9 @@ def check_batched(calls):
                  f"N={n} each, one launch", batch=B, n=n,
             valid=int(valid.sum()), bins_agree=bins, max_abs_err=err, ms=ms,
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=None))
+            library_ms=None,
+            _call=functools.partial(patch_kernel.orb_describe_cuda_batched,
+                                    raw, blurred, xy, valid, counts)))
     for (atlas, img, kp_xy, slots, want, cap), _, after in calls["cells"]:
         # `atlas`: the atlases as they were before the batched step's
         # launch; `after`: as that launch left them
@@ -1724,7 +1856,9 @@ def check_batched(calls):
             host_ms=host_ms, call_ms=call_ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=library_ms,
             library_max_abs_diff=library_diff,
-            library_rows_not_compared=clamped))
+            library_rows_not_compared=clamped,
+            _call=functools.partial(patch_kernel.anchor_cells_into_batched,
+                                    scratch, img, kp_xy, slots, want, cap)))
     return out
 
 
@@ -1856,6 +1990,151 @@ def ba_phase(device):
     return fig
 
 
+# each hand kernel's device events, by the start of their name ("void "
+# dropped: the profiler names a template kernel with its return type)
+KERNEL_EVENTS = {"lk_align": "lk_kernel<", "fast_score_nms": "fast_nms_kernel",
+                 "orb_describe": "orb_describe_kernel",
+                 "anchor_cells": "anchor_cells_kernel"}
+# the stage ranges of models/vo.py that call each hand kernel's custom op
+KERNEL_RANGES = {"track.search_by_opflow": ("lk_align",),
+                 "keyframe.extract_orb": ("fast_score_nms", "orb_describe"),
+                 "keyframe.anchored_align": ("lk_align",),
+                 "keyframe.stereo_lk": ("lk_align",),
+                 "keyframe.write_anchor_patches": ("anchor_cells",)}
+
+
+def attribution_cases(lk_inputs, lk_cases, pyr, fast_args, fast_case,
+                      orb_case, orb_check, anchor_case, anchor_check):
+    """Phase 3's main-path calls through each kernel's public entry point,
+    as (kernel, the models/vo.py range that makes the call, call, phase 3's
+    CUDA-event ms a call)."""
+    from trackingbench_slam_tpu_torch.ops.cuda import (fast_kernel,
+                                                       lk_kernel,
+                                                       patch_kernel)
+
+    def lk(i):
+        _, _, prev, cur, pts, start, valid, kw = lk_inputs[i]
+        return lambda: lk_kernel.lk_align(prev, cur, pts, start, valid, **kw)
+    a = anchor_case
+    return [
+        ("lk_align", "track.search_by_opflow", lk(0), lk_cases[0]["ms"]),
+        ("lk_align", "keyframe.stereo_lk", lk(1), lk_cases[1]["ms"]),
+        ("lk_align", "keyframe.anchored_align", lk(3), lk_cases[3]["ms"]),
+        ("fast_score_nms", "keyframe.extract_orb",
+         lambda: fast_kernel.fast_score_nms_levels(pyr, *fast_args),
+         fast_case["ms"]),
+        ("orb_describe", "keyframe.extract_orb",
+         lambda: patch_kernel.orb_describe(*orb_case), orb_check["ms"]),
+        ("anchor_cells", "keyframe.write_anchor_patches",
+         lambda: patch_kernel.anchor_cells(a["img"], a["kp_xy"], a["slots"],
+                                           a["want"], a["atlas"],
+                                           a["capacity"]),
+         anchor_check["ms"])]
+
+
+def kernel_events(avgs, kernel):
+    """(events, device ms in all) of `kernel`'s launches among the
+    profiler's key averages."""
+    from torch.autograd import DeviceType
+    ev = [e for e in avgs if e.device_type == DeviceType.CUDA
+          and not e.is_user_annotation
+          and e.key.removeprefix("void ").startswith(KERNEL_EVENTS[kernel])]
+    return (sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3)
+
+
+def profiled_cases(phases, cases, reps=ATTRIBUTION_CALLS):
+    """Every checked call of every kernel ({kernel: cases}; each case's
+    `_call`, taken off it here) made `reps` times under torch.profiler:
+    the kernel's device ms a call as the profiler reads it
+    (`profiled_ms`), beside the case's CUDA-event `ms`."""
+    for kernel, rows in cases.items():
+        for c in rows:
+            call = c.pop("_call")
+            call()
+            prof, _ = phases.profiled(lambda: [call() for _ in range(reps)])
+            n, ms = kernel_events(prof.key_averages(), kernel)
+            c["profiled_ms"] = ms / max(n, 1)
+            c["profiled_events_per_call"] = n / reps
+
+
+def attribution(phases, cases, reps=ATTRIBUTION_CALLS):
+    """Each case's call made `reps` times inside its range, under
+    torch.profiler: the kernel's device events (one a call) and their ms a
+    call, within ATTRIBUTION_TOL of the case's CUDA-event ms; the custom
+    op's device time and the range's must each hold the kernel's."""
+    import torch
+    from torch.autograd import DeviceType
+    out = []
+    for kernel, rng, call, event_ms in cases:
+        def run(call=call, rng=rng):
+            for _ in range(reps):
+                with torch.profiler.record_function(rng):
+                    call()
+        call()
+        prof, _ = phases.profiled(run)
+        avgs = prof.key_averages()
+        n, kernel_ms = kernel_events(avgs, kernel)
+
+        def cpu_ms(key):
+            return sum(e.device_time_total for e in avgs
+                       if e.device_type == DeviceType.CPU
+                       and e.key == key) / 1e3
+        row = dict(kernel=kernel, range=rng, calls=reps, kernel_events=n,
+                   profiled_ms=kernel_ms / max(n, 1), event_ms=event_ms,
+                   op_ms=cpu_ms(f"trackingbench::{kernel}") / reps,
+                   range_ms=cpu_ms(rng) / reps)
+        row["ratio"] = row["profiled_ms"] / event_ms
+        row["ok"] = (n == reps and abs(row["ratio"] - 1) <= ATTRIBUTION_TOL
+                     and row["op_ms"] * reps >= 0.99 * kernel_ms > 0
+                     and row["range_ms"] * reps >= 0.99 * kernel_ms)
+        out.append(row)
+    return out
+
+
+def attributed_window(phases, cfg, frames, device):
+    """A fresh StereoVO over frames 0-14, frame 14 (a keyframe: a track
+    step and a keyframe step) under torch.profiler: the per-range table of
+    profile_main_path, and whether every range of KERNEL_RANGES holds
+    device time of each of its kernels' custom ops, and at least as much
+    device time as they do."""
+    from trackingbench_slam_tpu_torch.models import vo as vo_mod
+    from trackingbench_slam_tpu_torch.profile_main_path import range_table
+    vo = vo_mod.StereoVO(cfg, device=device)
+    for left, right in frames[:14]:
+        vo.track(left, right)
+    prof, _ = phases.profiled(lambda: vo.track(*frames[14]))
+    table = range_table(prof.events(), vo_mod.STAGE_PREFIXES)
+    missing = []
+    for rng, kernels in KERNEL_RANGES.items():
+        row = table.get(rng, dict(ops={}, calls=0, device_ms_per_call=0.0))
+        ops_ms = 0.0
+        for k in kernels:
+            ms = row["ops"].get(f"trackingbench::{k}", {}).get("device_ms", 0)
+            ops_ms += ms
+            if not ms > 0:
+                missing.append((rng, k))
+        if not row["device_ms_per_call"] * row["calls"] >= 0.99 * ops_ms:
+            missing.append((rng, "range below its ops"))
+    return dict(stages=table, missing=missing)
+
+
+def profiler_history(here):
+    """python -m trackingbench_slam_tpu_torch.profile_main_path --history
+    in a child process on the same card: three fresh BA-on main-path runs,
+    one torch.profiler session, three more; its result."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m",
+                    "trackingbench_slam_tpu_torch.profile_main_path",
+                    "--history"], cwd=here, check=True, timeout=600,
+                   stdout=subprocess.DEVNULL)
+    with open(os.path.join(here, "chiprun_out",
+                           "profile_history_profiler.json")) as fh:
+        out = json.load(fh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1880,6 +2159,8 @@ def main():
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    phases = PhaseOrder(probe=process_probe)
+    phases.enter("build")
     rec = parity.load_record()
     build_s, reports = build.timed_build_all()
     for name in build.SOURCES:
@@ -1899,10 +2180,11 @@ def main():
     log(f"[frames] {N_FRAMES} corridor frames {cfg.camera.width}x"
         f"{cfg.camera.height} rendered in {time.perf_counter() - t0:.1f} s")
 
+    phases.enter("kernel checks")
     pyr, lk_inputs, orb_case, anchor_case, budgets = kernel_inputs(
         cfg, frames, scene, gt)
-    fast_cases = check_fast(pyr, float(cfg.extractor.min_threshold),
-                            cfg.extractor.fast_arc)
+    fast_args = (float(cfg.extractor.min_threshold), cfg.extractor.fast_arc)
+    fast_cases = check_fast(pyr, *fast_args)
     log("[check] fast_score_nms exact on "
         + ", ".join(f"{lv['shape'][0]}x{lv['shape'][1]}"
                     for lv in fast_cases[0]["levels"])
@@ -1945,6 +2227,7 @@ def main():
             raise AssertionError(f"{name}: last-frame inliers "
                                  f"{fig['last_inliers']} <= 500")
 
+    phases.enter("main path, BA off")
     _, ba_off = main_path(main_path_config_ba_off(), frames, gt, counters,
                           dev)
     log(f"[main path, BA off] {N_FRAMES} frames, {ba_off['timed']} timed: "
@@ -1954,6 +2237,7 @@ def main():
     gate("main path, BA off", ba_off,
          ba_off["launches"] == BA_OFF_LAUNCHES)
 
+    phases.enter("main path, BA on")
     vo, ba_on = main_path(cfg, frames, gt, counters, dev)
     ba_on["ba_call_ms"] = ba_call_ms(vo)
     log(f"[main path, BA on] {N_FRAMES} frames, {ba_on['timed']} timed: "
@@ -1967,6 +2251,7 @@ def main():
     live_traj = torch.stack(vo.trajectory)
     del vo
 
+    phases.enter("prefetch")
     prefetch = prefetch_phase(cfg, frames, gt, counters, dev, live_traj)
     log(f"[prefetch] every frame equal to the synchronous upload: "
         f"{not prefetch['frames_differing_from_upload']}; the BA-on live "
@@ -1983,6 +2268,7 @@ def main():
     if not prefetch["poses_equal_live"]:
         raise AssertionError(f"prefetch-fed poses differ: {prefetch}")
 
+    phases.enter("offline")
     offline = offline_phase(cfg, frames, gt, counters, dev, live_traj)
     log(f"[offline] OfflineStereoVO, {offline['frames']} frames uploaded "
         f"once in {offline['upload_s']:.2f} s: {offline['fps']:.2f} frames/s"
@@ -2004,6 +2290,7 @@ def main():
             and offline["scatter_writes_sync_free"]):
         raise AssertionError(f"offline failed its gates: {offline}")
 
+    phases.enter("photometric")
     photometric, clahe_case = photometric_phase(cfg, frames, gt, counters,
                                                 dev)
     for k in ("plain", "clahe"):
@@ -2023,6 +2310,7 @@ def main():
         f"{c['max_abs_err']:.2e} ({c['ms']:.4f} ms, plain "
         f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms)")
 
+    phases.enter("loop bench")
     lcfg = loop_bench_config()
     t0 = time.perf_counter()
     lframes, lgt, _ = loop_frames(lcfg, LOOP_FRAMES)
@@ -2094,17 +2382,15 @@ def main():
             and wi["closing_err_m"] < wo["closing_err_m"]):
         raise AssertionError(f"loop bench failed its gates: {loop}")
 
-    direct, seed_case = direct_phase(counters, dev, rec)
+    phases.enter("direct")
+    direct, seed_case, direct_stages = direct_phase(counters, dev, rec)
     log(f"[direct] {direct['frames']} frames 1226x370, stereo on the first "
         f"only, {direct['timed']} timed: {direct['fps']:.2f} frames/s, ATE "
         f"{direct['ate_m']:.5f} m, tracked {direct['num_tracked']}, promoted "
         f"{direct['num_promoted']}, launches {direct['launches']}; "
         f"sparse_image_align {direct['sparse_image_align']['host_ms']:.1f} ms"
-        f" host / {direct['sparse_image_align']['device_ms']:.3f} ms device "
-        f"in {direct['sparse_image_align']['cuda_kernels']:.0f} kernels, "
-        f"features_align {direct['features_align']['host_ms']:.1f} / "
-        f"{direct['features_align']['device_ms']:.3f} ms in "
-        f"{direct['features_align']['cuda_kernels']:.0f} kernels a call")
+        f" host, features_align {direct['features_align']['host_ms']:.1f} ms "
+        f"host a call (fenced; device ms in the profiles phase)")
     dp = direct["parity"]
     log(f"[direct parity] against the JAX record: first frame > 1 cm "
         f"{dp['first_parting']}, max distance {dp['max_diff_m']:.5f} m over "
@@ -2119,6 +2405,7 @@ def main():
             and direct["num_promoted"] > 50 and direct["finite"]):
         raise AssertionError(f"direct failed its gates: {direct}")
 
+    phases.enter("indirect")
     indirect, indirect_cases = indirect_phase(counters, dev, rec)
     for s, fig in indirect.items():
         if s in ("render_s", "vocabulary"):
@@ -2141,6 +2428,7 @@ def main():
                 and fig["finite"]):
             raise AssertionError(f"indirect {s} failed its gates: {fig}")
 
+    phases.enter("mono")
     mono, back_case = mono_phase(counters, dev, rec)
     log(f"[mono] {mono['frames']} frames 1226x370, {mono['timed']} timed: "
         f"{mono['fps']:.2f} frames/s, initialized {mono['initialized']} at "
@@ -2169,6 +2457,7 @@ def main():
     if not mono["ba_calls"] > 0:
         raise AssertionError(f"mono ran no BA: {mono}")
 
+    phases.enter("sequences")
     seqs, seq_cases = sequences_phase(counters, dev, out_dir)
     sk = seqs["kitti_layout"]
     log(f"[sequences kitti] {sk['frames']} corridor frames written as KITTI "
@@ -2226,6 +2515,7 @@ def main():
     if sd["exit_code"] != 0:
         raise AssertionError(f"the demo failed: {sd}")
 
+    phases.enter("recorded kernel checks")
     c = check_fast(*indirect_cases["fast"], where="indirect last frame")[0]
     fast_cases.append(c)
     log("[check] fast_score_nms exact on "
@@ -2267,10 +2557,10 @@ def main():
                     f"({c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, bound "
                     f"{c['bound_ms']:.5f} ms)" for c in new_lk))
 
-    batched, batched_calls = batched_phase(cfg, frames, gt, scene, counters,
-                                           dev)
+    phases.enter("batched")
+    batched, batched_calls, track_steps = batched_phase(
+        cfg, frames, gt, scene, counters, dev)
     bl, sl = batched["batched_launches"], batched["serial_launches"]
-    ck = batched["cuda_kernels_per_track_step"]
     log(f"[batched] {BATCH} sequences at {cfg.camera.width}x"
         f"{cfg.camera.height} (from frames {batched['starts']}), "
         f"{BATCH_TRACK_STEPS} batched track steps and one batched "
@@ -2280,9 +2570,8 @@ def main():
         f"leaves differing, [entries, max |diff|]: "
         f"{batched['kf_state_leaves_differing']}), inliers "
         f"{batched['inliers']} (serial {batched['serial_inliers']}); "
-        f"launches a step batched {bl} against serial {sl}; CUDA kernels a "
-        f"track step B={BATCH} {ck['batched']:.0f}, B=1 {ck['b1']:.0f}, "
-        f"serial {ck['serial']:.0f}; bench.py dp_eval_bench "
+        f"launches a step batched {bl} against serial {sl}; bench.py "
+        f"dp_eval_bench "
         f"({DP_STEPS} steps): B1 {batched['seq_frames_per_s']['B1']:.2f}, "
         f"B{BATCH} {batched['seq_frames_per_s'][f'B{BATCH}']:.2f} "
         f"sequence-frames/s (x{batched['batch_speedup']:.2f}); mixed "
@@ -2298,7 +2587,6 @@ def main():
             and batched["sequences_distinct"]
             and bl["track_step"] == sl["track_step"]
             and bl["track_and_keyframe_step"] == kf_expected
-            and ck["batched"] <= 1.5 * ck["b1"]
             and batched["mixed_branch"]["ok"]):
         raise AssertionError(f"batched tracking failed its gates: {batched}")
     bcases = check_batched(batched_calls)
@@ -2312,6 +2600,7 @@ def main():
             f"plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms)"
             for k in ("lk", "fast", "orb", "cells") for c in bcases[k]))
 
+    phases.enter("BA")
     ba = ba_phase(dev)
     gap = ba["distributed_vs_one_device"]
     log(f"[BA] {ba['landmarks']} landmarks x {ba['keyframes']} keyframes x "
@@ -2336,6 +2625,91 @@ def main():
             and ba["flat_points_max_diff"] < 5e-4
             and ba["points_moved"] > 1e-2):
         raise AssertionError(f"distributed BA failed its gates: {ba}")
+
+    phases.enter("main path, BA on, again")
+    vo, again = main_path(cfg, frames, gt, counters, dev)
+    again["poses_equal_first_run"] = torch.equal(torch.stack(vo.trajectory),
+                                                  live_traj)
+    again["fps_over_first_run"] = again["fps"] / ba_on["fps"]
+    del vo
+    probe = {p["phase"]: p for p in phases.probes}
+    log(f"[main path, BA on, again] the last timed phase: {again['fps']:.2f} "
+        f"frames/s against {ba_on['fps']:.2f} in the first run "
+        f"(x{again['fps_over_first_run']:.3f}; the host's pure-Python loop "
+        f"{probe['main path, BA on, again']['python_ms']:.1f} ms against "
+        f"{probe['main path, BA on']['python_ms']:.1f} ms before the first "
+        f"run); poses equal to the first run "
+        f"{again['poses_equal_first_run']}, launches {again['launches']}")
+    if not (again["poses_equal_first_run"] and again["launches"] == launches):
+        raise AssertionError(f"the BA-on main path did not repeat: {again}")
+
+    phases.enter("profiles")
+    t0 = time.perf_counter()
+    attributed = attribution(phases, attribution_cases(
+        lk_inputs, lk_cases, pyr, fast_args, fast_cases[0], orb_case,
+        orb_cases[0], anchor_case, anchor_cases[0]))
+    log("[profiles: attribution] each kernel's calls inside its models/vo.py "
+        f"range, {ATTRIBUTION_CALLS} a case, under torch.profiler: " + "; ".join(
+            f"{r['kernel']} in {r['range']}: {r['kernel_events']} events, "
+            f"{r['profiled_ms']:.5f} ms a call against {r['event_ms']:.5f} "
+            f"from CUDA events (x{r['ratio']:.3f}), custom op "
+            f"{r['op_ms']:.5f} ms, range {r['range_ms']:.5f} ms"
+            for r in attributed))
+    bad = [r for r in attributed if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernels not attributed to their op and range "
+                             f"within {ATTRIBUTION_TOL:.0%}: {bad}")
+    kernel_cases = dict(lk_align=lk_cases, fast_score_nms=fast_cases,
+                        orb_describe=orb_cases, anchor_cells=anchor_cases)
+    profiled_cases(phases, kernel_cases)
+    log("[profiles: kernel cases] every checked kernel call, "
+        f"{ATTRIBUTION_CALLS} a case, device ms a call under torch.profiler "
+        "against CUDA events: " + "; ".join(
+            f"{c['case']}: {c['profiled_ms']:.5f} / {c['ms']:.5f}"
+            for rows in kernel_cases.values() for c in rows))
+    window = attributed_window(phases, cfg, frames, dev)
+    log("[profiles: main path] frame 14 (a keyframe) under "
+        "torch.profiler, device ms a call of each range and of the hand "
+        "kernels' custom ops inside it: " + "; ".join(
+            f"{r} {window['stages'][r]['device_ms_per_call']:.4f} ("
+            + ", ".join(f"{k.split('::')[1]} {v['device_ms']:.4f} in "
+                        f"{v['calls']}"
+                        for k, v in window["stages"][r]["ops"].items()) + ")"
+            for r in KERNEL_RANGES if r in window["stages"]))
+    if window["missing"]:
+        raise AssertionError(f"main path: kernels not inside their ranges: "
+                             f"{window['missing']}")
+    for key, fn in direct_stages.items():
+        direct[key].update(profile_call(phases, fn))
+    log(f"[profiles: direct] sparse_image_align "
+        f"{direct['sparse_image_align']['device_ms']:.3f} ms device in "
+        f"{direct['sparse_image_align']['cuda_kernels']:.0f} kernels, "
+        f"features_align {direct['features_align']['device_ms']:.3f} ms in "
+        f"{direct['features_align']['cuda_kernels']:.0f} kernels a call")
+    prof = {k: profile_call(phases, fn)
+            for k, fn in track_steps.items()}
+    ck = {k: v["cuda_kernels"] for k, v in prof.items()}
+    batched.update(cuda_kernels_per_track_step=ck, track_step_profile=prof)
+    log(f"[profiles: batched] CUDA kernels a track step B={BATCH} "
+        f"{ck['batched']:.0f}, B=1 {ck['b1']:.0f}, serial "
+        f"{ck['serial']:.0f}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ck["batched"] <= 1.5 * ck["b1"]:
+        raise AssertionError(f"batched track step: {ck} CUDA kernels")
+
+    phases.enter("profiler history")
+    history = profiler_history(here)
+    hb, ha = history["before"], history["after"]
+    log(f"[profiler history] profile_main_path --history in a child process:"
+        f" {len(hb['runs'])} fresh BA-on main-path runs "
+        f"{hb['fps_median']:.2f} frames/s ({hb['fps_min']:.2f}-"
+        f"{hb['fps_max']:.2f}), one torch.profiler session, then "
+        f"{len(ha['runs'])} more {ha['fps_median']:.2f} ({ha['fps_min']:.2f}-"
+        f"{ha['fps_max']:.2f}): x{history['after_over_before']:.3f}, ranges "
+        f"{'overlap' if history['ranges_overlap'] else 'apart'}; small-op "
+        f"launch " + ", ".join(f"{r['launch_us']:.2f}"
+                               for r in hb["runs"] + ha["runs"])
+        + f" us; {history['seconds']:.1f} s")
 
     paths = {"main_path_ba_off": ba_off["launches"],
              "main_path": launches,
@@ -2388,6 +2762,9 @@ def main():
               anchor_cases[0], anchor_cases),
     ]
     result = {"kernels": kernels, "main_path": ba_on,
+              "main_path_again": again, "attribution": attributed,
+              "attributed_window": window, "profiler_history": history,
+              "phase_probes": phases.probes,
               "main_path_ba_off": dict(ba_off, orb_budgets=budgets),
               "prefetch": prefetch, "offline": offline,
               "photometric": photometric,

@@ -5,6 +5,7 @@ port's guards (no JAX, no silent CPU, no sharded BA without a
 torch.distributed world)."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -226,3 +227,24 @@ def test_stereo_vo_needs_cuda_unless_asked_for_cpu():
         for c in (cfg, small_config(local_ba_every=2)):
             with pytest.raises(RuntimeError, match="CUDA"):
                 tracker(c)
+
+
+def test_ba_window_above_map_capacity_raises_in_both_packages():
+    """solver.max_landmarks above map.max_points: the reference's top_k
+    raises while it builds the window, and so does the port, naming both
+    fields."""
+    from trackingbench_slam_tpu.models import vo as j_vo
+    cfg = small_config(local_ba_every=2)
+    cfg = dataclasses.replace(
+        cfg, map=dataclasses.replace(cfg.map, max_points=512),
+        solver=dataclasses.replace(cfg.solver, max_landmarks=1024))
+    jcfg = JConfig.from_json(cfg.to_json())
+    img = np.zeros((240, 320), np.float32)
+    with pytest.raises(ValueError, match="top_k"):
+        j_lm.local_ba_step(j_vo.init_state(jcfg, jax.numpy.asarray(img)),
+                           j_cam.CameraParams.from_config(jcfg.camera), jcfg)
+    with pytest.raises(ValueError, match=r"solver\.max_landmarks \(1024\) "
+                       r"is above map\.max_points \(512\)"):
+        t_lm.local_ba_step(t_vo.init_state(cfg, torch.from_numpy(img)),
+                           t_cam.CameraParams.from_config(cfg.camera, CPU),
+                           cfg)

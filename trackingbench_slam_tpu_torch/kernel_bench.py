@@ -18,8 +18,11 @@ it, else, as its `extract_orb` does, per level two patch crops,
 `models.map.write_anchor_patches` for the anchor capture. Per case: device
 ms per call (CUDA-graph replay), host ms per eager call, launches per call
 of the checkout's hand-written kernel (its own counters) and of all CUDA
-kernels (torch.profiler's count). Writes chiprun_out/kernel_bench.json and
-prints one JSON line. Needs CUDA.
+kernels, and the device ms of the hand kernels beside the device ms that
+the profiler counts in the checkout's custom ops (torch.profiler, after
+every case is timed: a profiler session slows the process for a while
+after it ends). Writes
+chiprun_out/kernel_bench.json and prints one JSON line. Needs CUDA.
 
 Only `time_ms` and `kernel_inputs` are imported by other code; the child
 mode puts the checkout it times first on sys.path, so this file imports
@@ -182,9 +185,19 @@ def _launches_per_call(counter, fn):
     return counter.launches - before
 
 
-def _device_ops_per_call(fn):
-    """(CUDA kernels, all device operations incl. copies and memsets) that
-    one call of fn puts on the device, from torch.profiler."""
+# the hand kernels' names as torch.profiler's device events give them
+# ("void " dropped)
+HAND_KERNELS = ("lk_kernel<", "fast_nms_kernel", "orb_describe_kernel",
+                "anchor_cells_kernel")
+
+
+def _profile_call(fn):
+    """What one call of fn puts on the device, from torch.profiler: CUDA
+    kernels, all device operations incl. copies and memsets, the device ms
+    of the hand kernels among them, and the profiler's events of the
+    checkout's custom ops (trackingbench::*) with the device ms an event
+    holds: the hand kernel's launch, and the copies the op makes, when the
+    profiler attributes them to the op."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -193,10 +206,21 @@ def _device_ops_per_call(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
+    avgs = prof.key_averages()
+    device = [e for e in avgs
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
-    return sum(e.count for e in kernels), sum(e.count for e in device)
+    ops = [e for e in avgs if e.device_type == DeviceType.CPU
+           and e.key.startswith("trackingbench::")]
+    return dict(
+        cuda_kernels_per_call=sum(e.count for e in kernels),
+        device_ops_per_call=sum(e.count for e in device),
+        hand_kernel_ms=sum(e.self_device_time_total for e in kernels
+                           if e.key.removeprefix("void ").startswith(
+                               HAND_KERNELS)) / 1e3,
+        custom_op_events=sum(e.count for e in ops),
+        custom_op_ms_per_event=sum(e.device_time_total for e in ops)
+        / 1e3 / max(sum(e.count for e in ops), 1))
 
 
 def child(root, inputs_path):
@@ -229,14 +253,15 @@ def child(root, inputs_path):
     lk_counter = _counter(lk_kernel, "lk_align_cuda", "patch_align_cuda")
     fast_counter = _counter(fast_kernel, "fast_score_nms_cuda")
     out = {"root": root, "lk": [], "fast": [], "orb": [], "anchor": []}
+    profile_later = []   # timing comes first: a profiler session slows
+    #                      the process after it ends (PERF.md)
 
     def case(name, fn, counter):
         ms, host_ms = time_ms(fn, REPS)
-        kernels, ops = _device_ops_per_call(fn)
-        return dict(case=name, ms=ms, host_ms=host_ms,
-                    launches_per_call=_launches_per_call(counter, fn),
-                    cuda_kernels_per_call=kernels,
-                    device_ops_per_call=ops)
+        row = dict(case=name, ms=ms, host_ms=host_ms,
+                   launches_per_call=_launches_per_call(counter, fn))
+        profile_later.append((row, fn))
+        return row
 
     for name, entry, prev, cur, pts, start, valid, kw in data["lk"]:
         if entry == "anchored_align":
@@ -296,6 +321,8 @@ def child(root, inputs_path):
         f"{int(a['want'].sum())} wanted", anchor_fn,
         _counter(patch_kernel, "anchor_cells_cuda",
                  "extract_patches32_cuda")))
+    for row, fn in profile_later:
+        row.update(_profile_call(fn))
     return out
 
 

@@ -55,7 +55,9 @@ def build_window_problem_grouped(m, kfs, scale_factor: float,
     `window_keyframes` ring keyframes, total count breaking ties.
 
     Returns (problem, order, lm_idx): order[d] = ring slot at dense window
-    index d (oldest first), lm_idx (L,) the selected map slots."""
+    index d (oldest first), lm_idx (L,) the selected map slots. Raises
+    ValueError when `max_landmarks` is above the map's slot count, as the
+    reference's top_k does."""
     KF = kfs.T_cw.shape[0]
     order, dense_of_slot = _ring_order(kfs)
     slot_all = m.obs_kf.clamp(0, KF - 1).long()
@@ -69,6 +71,10 @@ def build_window_problem_grouped(m, kfs, scale_factor: float,
         rank = n_win * 64 + n_live     # lexicographic; K <= 16 < 64
     else:
         rank = n_live
+    if max_landmarks > rank.shape[0]:
+        # where jax.lax.top_k raises for k above the operand's size
+        raise ValueError(f"solver.max_landmarks ({max_landmarks}) is above "
+                         f"map.max_points ({rank.shape[0]})")
     _, lm_idx = stable_topk(rank, max_landmarks)
 
     kf_slot = m.obs_kf[lm_idx]

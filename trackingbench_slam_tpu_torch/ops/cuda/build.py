@@ -40,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _flags(name: str) -> list[str]:
-    return ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                         "-fPIC", "-Xptxas", "-v"]
+    # The CUDA runtime is linked into each library (nvcc's default, named):
+    # torch.profiler attributes its launches to the custom op and the
+    # record_function range around them as it does PyTorch's own, and
+    # `-cudart shared` bought nothing (PERF.md).
+    return ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-cudart", "static",
+                         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def library_path(name: str) -> Path:

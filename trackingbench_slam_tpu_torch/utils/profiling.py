@@ -6,8 +6,11 @@ measures its enqueue unless the stage is fenced. `fence` waits for the
 devices of a result; `StageTimer` on the card brackets each stage with two
 CUDA events on the current stream and reads their elapsed times only when
 asked (`totals`, `report`), so timing adds no sync inside the loop; on the
-CPU it uses the host clock. `trace` records torch.profiler (CPU and CUDA
-activity) around a region and writes a Chrome trace.
+CPU it uses the host clock. `StageTimer(fenced_host=True)` times each stage
+on the host clock between two `torch.cuda.synchronize()` calls instead:
+what a host-bound stage costs, without the profiler's per-op cost. `trace`
+records torch.profiler (CPU and CUDA activity) around a region and writes a
+Chrome trace.
 """
 
 from __future__ import annotations
@@ -49,11 +52,20 @@ class StageTimer:
     >>> with t.time("extract"):
     ...     out = extract(...)
     >>> print(t.report())
+
+    With `fenced_host`, a stage's time is the host clock's (`clock`) from
+    its start to its end, the card drained at both (nothing is left queued
+    from before the stage, and the stage's own work is done): its host
+    time, and the device time the host waited for.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, fenced_host: bool = False,
+                 clock=time.perf_counter):
         self.device = resolve_device(device)
-        self._cuda = self.device.type == "cuda"
+        self._cuda = self.device.type == "cuda" and not fenced_host
+        self._fence = (torch.cuda.synchronize
+                       if self.device.type == "cuda" else lambda _: None)
+        self._clock = clock
         self._seconds = defaultdict(float)
         self._counts = defaultdict(int)
         self._events: list = []   # (name, start, end) not yet read
@@ -70,11 +82,13 @@ class StageTimer:
                 end.record()
                 self._events.append((name, start, end))
             return
-        t0 = time.perf_counter()
+        self._fence(self.device)
+        t0 = self._clock()
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            self._fence(self.device)
+            self.add(name, self._clock() - t0)
 
     def add(self, name: str, seconds: float) -> None:
         self._seconds[name] += seconds
@@ -97,6 +111,11 @@ class StageTimer:
     def counts(self) -> dict:
         self._resolve()
         return dict(self._counts)
+
+    def ms_per_call(self) -> dict:
+        """Milliseconds a call of each stage."""
+        totals, counts = self.totals, self.counts
+        return {n: totals[n] / counts[n] * 1e3 for n in sorted(totals)}
 
     def report(self) -> str:
         totals, counts = self.totals, self.counts
