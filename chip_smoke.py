@@ -106,24 +106,35 @@ runs before the first torch.profiler session of the process (PHASES):
   14. batched and distributed (parallel/): 8 sequences cut from the main
      path's frames (rights rendered where missing), bootstrapped serially,
      then 3 batched track steps and one batched track-and-keyframe step
-     (dp_eval) held to serial runs within 1e-5; one batched keyframe
-     step with a fresh sequence beside 7 tracked ones (both sides of the
-     stereo-prior branch kept) held to serial keyframe steps on the right
-     image's u of the rows whose keypoint both runs share (flags >= 99%,
-     within 1e-3 px, >= 50 rows a sequence); hand-kernel launches of a
-     batched step equal to a serial step's (the keyframe step one stereo
-     LK more: both sides of the stereo-prior branch run); bench.py
-     dp_eval_bench's B1 and B8 sequence-frames/s; every batched kernel call
+     (dp_eval) held to serial runs: every pyramid level equal after every
+     step; after the keyframe step every leaf of the state equal
+     (`held_to_serial`; integer and bool leaves, pyramids, ORB angles,
+     FAST responses, the anchor atlas and the fresh keypoints' positions
+     bit-equal, the floats a reduction could move within stated
+     tolerances: poses 1e-5, landmark positions 1e-4 m), poses within
+     1e-5; the same keyframe frame bisected by parallel/batch_check.py
+     (every stage's calls serial against vmap on the same inputs); one
+     batched keyframe step with a fresh sequence beside 7 tracked ones
+     (both sides of the stereo-prior branch kept) held to serial keyframe
+     steps by the same gates; hand-kernel launches of a batched step equal
+     to a serial step's (the keyframe step one stereo LK more: both sides
+     of the stereo-prior branch run); dp_eval.dp_eval_bench (bench.py's
+     protocol), B1 and B8 sequence-frames/s; every batched kernel call
      against its plain version per sequence as in phase 3 (the anchor
      cells on the atlases from before the step's launch, and the atlases
      that launch left); BA iterations/s with benchmarks/ba_scaling.py's
      protocol (4 windows of 4096 x 16 x 16, (t(12) - t(2)) / 10), the
      median of 11 readings, one-device and distributed on a world of one
-     over NCCL, alternating; both distributed solves against bundle_adjust_grouped /
-     bundle_adjust: poses and points within 5e-4;
+     over NCCL, alternating; both distributed solves against
+     bundle_adjust_grouped / bundle_adjust: poses and points within 5e-4;
   15. main path, BA on, again, the last timed phase: frames/s beside the
      first BA-on run's, poses torch.equal to it, the same launches;
-  16. profiles, under torch.profiler: (a) each kernel's phase-3 calls
+  16. bench: `python -m trackingbench_slam_tpu_torch.bench --frames 40` in
+     a fresh process (bench.py's headline line for the port): bench.py's
+     keys, the five stage_ms keys and the port's own, a positive rate, ATE
+     < 0.01 m, the CPU reference over all 40 frames, vs_baseline equal to
+     value / cpu_reference_fps within their roundings;
+  17. profiles, under torch.profiler: (a) each kernel's phase-3 calls
      through its public entry point (the custom op), ATTRIBUTION_CALLS a
      case, inside the models/vo.py range that makes the call (LK track,
      stereo and anchored; FAST and ORB describe in keyframe.extract_orb;
@@ -136,11 +147,11 @@ runs before the first torch.profiler session of the process (PHASES):
      direct stages: device ms and CUDA kernels a call; (d) phase 14's
      track steps: CUDA kernels of a batched track step <= 1.5x the B = 1
      step's;
-  17. profiler history: `python -m trackingbench_slam_tpu_torch.
+  18. profiler history: `python -m trackingbench_slam_tpu_torch.
      profile_main_path --history` in a child process on the same card
      (three fresh BA-on main-path runs, one torch.profiler session, three
      more), its frames/s on both sides;
-  18. a `kernels` JSON line (launches on every path), the script's seconds,
+  19. a `kernels` JSON line (launches on every path), the script's seconds,
      then the card's nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -203,6 +214,7 @@ PHASES = (
     ("batched", "timed"),
     ("BA", "timed"),
     ("main path, BA on, again", "timed"),
+    ("bench", "child"),
     ("profiles", "profiled"),
     ("profiler history", "child"),
 )
@@ -1429,61 +1441,89 @@ def sequences_phase(counters, device, out_dir):
     return out, cases
 
 
-def batched_sequences(cfg, frames, gt, scene):
-    """BATCH distinct sequences cut from the main path's rendered frames:
-    sequence b is frames 4b .. 4b + 4, bootstrapped at 4b, tracked over the
-    next BATCH_TRACK_STEPS and keyframed at 4b + 4; the right images those
-    two frames need are rendered where the main path has none."""
-    from trackingbench_slam_tpu_torch.utils.corridor import BASELINE, _u8
-    seqs = []
-    for b in range(BATCH):
-        seq = []
-        for i in range(4 * b, 4 * b + BATCH_TRACK_STEPS + 2):
-            left, right = frames[i]
-            if right is None and i in (4 * b, 4 * b + BATCH_TRACK_STEPS + 1):
-                right = _u8(scene.stereo_pair(gt[i], BASELINE)[1])
-            seq.append((left, right))
-        seqs.append(seq)
-    return seqs
+# A batched keyframe step against serial ones (`held_to_serial`): the
+# floats that a float reduction can move under a batch (the pose solve's
+# sums, the small products of geometry/; parallel/batch_check.py names
+# them), each within its tolerance: poses 1e-5, landmark positions 1e-4 m,
+# their distance bounds at up to 1.25^2 times that, unit vectors (normals,
+# bearings) 1e-4, pixel positions and the flow prior 1e-3 px (phase 3's LK
+# agreement). Every other leaf must be equal: the pyramids, every integer
+# and bool leaf, and the floats the images alone determine.
+BATCH_FLOAT_TOL = {".T_cw": 1e-5, ".prev.T_cw": 1e-5, ".kfs.T_cw": 1e-5,
+                   ".T_rel": 1e-5, ".map.pos": 1e-4, ".map.min_dist": 2e-4,
+                   ".map.max_dist": 2e-4, ".map.normal": 1e-4,
+                   ".prev.bearing": 1e-4, ".kfs.bearing": 1e-4,
+                   ".prev.kp_xy": 1e-3, ".kfs.kp_xy": 1e-3,
+                   ".kfs.kp_ur": 1e-3, ".flow": 1e-3}
 
 
-def tree_diff(a, b):
-    """The leaves of two states that differ: {path: [entries differing,
-    max |diff| for float leaves]}."""
+def held_to_serial(batched, serial, before):
+    """Per-sequence states after a batched keyframe step (`batched`)
+    against serial keyframe steps (`serial`) from the same states
+    (`before`). Gates: every leaf equal (`batch_check.tree_diff`: bit-equal,
+    NaN equal to NaN) but the floats of BATCH_FLOAT_TOL, each within its
+    tolerance. So these must be equal: the pyramids (.prev.pyramid[l],
+    .prev.lk_pyr[l]); every integer and bool leaf (keypoint validity and
+    levels .prev.valid, .prev.kp_level, descriptors .prev.desc, map and
+    keyframe slot occupancy .map.valid, .kfs.valid, .kfs.kp_valid,
+    observations .map.obs_kf, .map.obs_feat, .map.obs_desc, links
+    .prev.map_idx, .kfs.map_idx, counters .map.n_visible, .map.n_found,
+    .map.obs_count, .num_inliers, ...); the ORB angles and FAST responses
+    (.prev.kp_angle, .kfs.kp_angle, .prev.kp_response) and the anchor atlas
+    (.map.anchor_atlas); and, beside the tolerance of .prev.kp_xy and
+    .kfs.kp_xy, the positions of the keyframe's fresh FAST keypoints (the
+    rows valid after the step and not before) in .prev.kp_xy and in the new
+    keyframe's row of .kfs.kp_xy. Returns the figures, `failures` empty
+    when every gate holds."""
     import torch
-    import torch.utils._pytree as pytree
-    fa, _ = pytree.tree_flatten_with_path(a)
-    fb, _ = pytree.tree_flatten(b)
-    out = {}
-    for (path, x), y in zip(fa, fb):
-        ne = x != y
-        if bool(ne.any()):
-            d = (float((x - y).abs().max()) if x.is_floating_point()
-                 else None)
-            out[pytree.keystr(path)] = [int(ne.sum()), d]
-    return out
+    from trackingbench_slam_tpu_torch.parallel.batch_check import (
+        leaf_equal, merge_diffs, tree_diff)
+    diffs, fresh, fresh_rows = [], 0, 0
+    for o, s, t in zip(batched, serial, before):
+        diffs.append(tree_diff(o, s))
+        rows = s.prev.valid & ~t.prev.valid
+        slot = int(torch.nonzero(s.kfs.valid & ~t.kfs.valid)[0, 0])
+        for x, y in ((o.prev.kp_xy[rows], s.prev.kp_xy[rows]),
+                     (o.kfs.kp_xy[slot][rows], s.kfs.kp_xy[slot][rows])):
+            fresh += int((~leaf_equal(x, y)).sum())
+        fresh_rows += int(rows.sum())
+    leaves = merge_diffs(diffs)
+    failures = []
+    for path, (_, _, d) in leaves.items():
+        if d is None or not d <= BATCH_FLOAT_TOL.get(path, 0.0):
+            failures.append(path)
+    if fresh:
+        failures.append("fresh keypoint positions")
+    return dict(leaves_differing=leaves,
+                largest={k: leaves.get(k, [0, 0, 0.0])[2]
+                         for k in (".T_cw", ".map.pos")},
+                fresh_rows=fresh_rows, fresh_xy_differing=fresh,
+                failures=failures)
 
 
 def batched_phase(cfg, frames, gt, scene, counters, device):
     """Phase 14a: BATCH sequences at the main path's width as one batched
     program (parallel/dp_eval.py), each bootstrapped serially: batched
     track steps and one batched track-and-keyframe step held to serial runs
-    within 1e-5, the hand-kernel launches of a batched step against a
-    serial step's, the CUDA kernels of a batched track step against the
-    B = 1 step's, and bench.py's dp_eval_bench (one state broadcast,
-    DP_STEPS steps, fenced) at B = 1 and B = BATCH. Returns (figures,
-    the batched kernel calls recorded, one track step at B = BATCH, at
-    B = 1 and serially, for the profiles phase)."""
+    (every pyramid level equal after each step; after the keyframe step
+    `held_to_serial`), the same keyframe frame's stages and ops bisected by
+    parallel/batch_check.py on the serial states before it, the hand-kernel
+    launches of a batched step against a serial step's, and
+    dp_eval.dp_eval_bench (bench.py's protocol) at B = 1 and B = BATCH.
+    Returns (figures, the batched kernel calls recorded, one track step at
+    B = BATCH, at B = 1 and serially, for the profiles phase to count their
+    CUDA kernels)."""
     import torch
     from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
     from trackingbench_slam_tpu_torch.ops.cuda import (fast_kernel, lk_kernel,
                                                        patch_kernel)
-    from trackingbench_slam_tpu_torch.parallel import dp_eval
+    from trackingbench_slam_tpu_torch.parallel import batch_check, dp_eval
     from trackingbench_slam_tpu_torch.utils.device import upload_image
     t_phase = time.perf_counter()
     cam = cam_mod.CameraParams.from_config(cfg.camera, device)
-    seqs = batched_sequences(cfg, frames, gt, scene)
+    seqs = batch_check.batched_sequences(frames, gt, scene, BATCH,
+                                         BATCH_TRACK_STEPS)
     up = [[tuple(None if x is None else upload_image(x, device) for x in f)
            for f in seq] for seq in seqs]
 
@@ -1498,22 +1538,23 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
         sync(device)
         return out, {k: c.launches for k, c in counters.items()}
 
+    def pyramids(st):
+        return st.prev.pyramid, st.prev.lk_pyr
+
     spent = {}
     t0 = time.perf_counter()
-    boot = []
-    for seq in up:
-        st = vo_mod.init_state(cfg, seq[0][0])
-        st = vo_mod.keyframe_step(st, seq[0][1], cam, cfg)
-        boot.append(st._replace(frame_id=st.frame_id + 1))
+    boot = [batch_check.bootstrap(seq, cam, cfg) for seq in up]
     # serial runs, one sequence at a time, with its own generator
-    serial_track, serial_kf, g = [], [], gens()
+    serial_track, serial_kf, serial_pyr, g = [], [], [], gens()
     serial_launches = {}
     for b, seq in enumerate(up):
         st = boot[b]
+        serial_pyr.append([])
         for i in range(1, BATCH_TRACK_STEPS + 1):
             st, n = counted(lambda: vo_mod.track_step(st, seq[i][0], cam, cfg,
                                                       g[b]))
             serial_launches.setdefault("track_step", n)
+            serial_pyr[b].append(pyramids(st))
         serial_track.append(st)
         kf, n = counted(lambda: vo_mod.track_and_keyframe_step(
             st, seq[-1][0], seq[-1][1], cam, cfg, g[b]))
@@ -1526,6 +1567,8 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
     g = gens()
     states = dp_eval.stack_states(boot)
     batched_launches = {}
+    pyr_diff = []
+
     def every(module, name, keep=None):
         return watched(module, name, lambda a, k: True, every=True,
                        keep=keep)
@@ -1543,6 +1586,10 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
             states, n = counted(lambda: dp_eval.dp_track_step(
                 states, imgs, cam, cfg, u))
             batched_launches.setdefault("track_step", n)
+            pyr_diff.append(batch_check.merge_diffs(
+                batch_check.tree_diff(pyramids(o), serial_pyr[b][i - 1])
+                for b, o in enumerate(dp_eval.unstack_states(states,
+                                                             BATCH))))
         batched_track = states
         u = dp_eval.draw_uniform(g, cfg)
         lefts = torch.stack([seq[-1][0] for seq in up]).float()
@@ -1557,17 +1604,25 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
                           .abs().max()) for b in range(BATCH))
     kf_err = max(float((batched_kf.T_cw[b] - serial_kf[b].T_cw).abs().max())
                  for b in range(BATCH))
-    state_diff = {}
-    for o, s in zip(dp_eval.unstack_states(batched_kf, BATCH), serial_kf):
-        for k, (cnt, d) in tree_diff(o, s).items():
-            old = state_diff.get(k, [0, None])
-            state_diff[k] = [old[0] + cnt, d if old[1] is None
-                             else max(old[1], d or 0.0)]
+    batched_tracked = dp_eval.unstack_states(batched_track, BATCH)
+    held = held_to_serial(dp_eval.unstack_states(batched_kf, BATCH),
+                          serial_kf, serial_track)
+    # the batched tracked states against the serial ones: where the
+    # keyframe frame's inputs already differ
+    track_state_diff = batch_check.merge_diffs(
+        batch_check.tree_diff(o, s)
+        for o, s in zip(batched_tracked, serial_track))
     inliers = [int(x) for x in batched_kf.num_inliers]
     serial_inliers = [int(s.num_inliers) for s in serial_kf]
     distinct = not torch.allclose(serial_kf[0].T_cw, serial_kf[-1].T_cw,
                                   atol=1e-4)
     spent["batched_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the keyframe frame's stages and ops, serial against batched on the
+    # same inputs: which ops still round differently under the batch
+    bisect = batch_check.batch_check(serial_track, lefts, rights, cam, cfg,
+                                     u)
+    spent["batch_check_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mixed = mixed_branch_keyframe(cfg, cam, up, serial_track, gens())
     spent["mixed_branch_s"] = time.perf_counter() - t0
@@ -1583,26 +1638,8 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
         serial=lambda: vo_mod.track_step(boot[0], up[0][1][0], cam, cfg,
                                          uniform=u8[0]))
     t0 = time.perf_counter()
-    # bench.py dp_eval_bench: StereoVO over frames 0-2, its state broadcast
-    base = vo_mod.StereoVO(cfg, device=device)
-    for i in range(3):
-        base.track(*frames[i])
-    img = upload_image(frames[3][0], device).float()
-    rates = {}
-    for bsz in (1, BATCH):
-        st = dp_eval.stack_states([base.state] * bsz)
-        imgs = img.expand((bsz,) + tuple(img.shape))
-        g = [torch.Generator(device=device).manual_seed(b)
-             for b in range(bsz)]
-        st = dp_eval.dp_track_step(st, imgs, cam, cfg,
-                                   dp_eval.draw_uniform(g, cfg))
-        sync(device)
-        t_b = time.perf_counter()
-        for _ in range(DP_STEPS):
-            st = dp_eval.dp_track_step(st, imgs, cam, cfg,
-                                       dp_eval.draw_uniform(g, cfg))
-        sync(device)
-        rates[f"B{bsz}"] = bsz * DP_STEPS / (time.perf_counter() - t_b)
+    rates = dp_eval.dp_eval_bench(cfg, frames, B=BATCH, steps=DP_STEPS,
+                                  device=device)
     spent["dp_eval_bench_s"] = time.perf_counter() - t0
     calls = dict(lk=[("batched track", lk_calls[0]),
                      ("batched keyframe anchored", kf_lk[1]),
@@ -1612,13 +1649,13 @@ def batched_phase(cfg, frames, gt, scene, counters, device):
     fig = dict(batch=BATCH, track_steps=BATCH_TRACK_STEPS,
                starts=[4 * b for b in range(BATCH)],
                track_pose_max_diff=track_err, kf_pose_max_diff=kf_err,
-               kf_state_leaves_differing=state_diff, inliers=inliers,
+               pyramids_differing_after_track_steps=pyr_diff,
+               track_state_leaves_differing=track_state_diff,
+               held=held, batch_check=bisect, inliers=inliers,
                serial_inliers=serial_inliers, sequences_distinct=distinct,
                mixed_branch=mixed,
                serial_launches=serial_launches,
-               batched_launches=batched_launches,
-               seq_frames_per_s=rates,
-               batch_speedup=rates[f"B{BATCH}"] / rates["B1"],
+               batched_launches=batched_launches, dp_eval_bench=rates,
                spent=spent, seconds=time.perf_counter() - t_phase)
     return fig, calls, track_steps
 
@@ -1627,10 +1664,8 @@ def mixed_branch_keyframe(cfg, cam, up, tracked, generators):
     """One batched keyframe step whose sequences take both sides of the
     stereo-prior branch: sequence 0 a fresh state (no landmark, the full
     pyramid), the others tracked on to their keyframe frame (the 2 primed
-    levels); held per sequence to its serial keyframe step on the new
-    keyframe's rows whose keypoint is the same in both runs (the x0.8
-    pyramid parts the runs' fresh keypoints): the right-image u kp_ur,
-    which the branch taken decides. Returns the figures."""
+    levels); held per sequence to its serial keyframe step from the same
+    state with `held_to_serial`. Returns the figures."""
     import torch
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
     from trackingbench_slam_tpu_torch.parallel import dp_eval
@@ -1645,25 +1680,14 @@ def mixed_branch_keyframe(cfg, cam, up, tracked, generators):
                                           both_branches=True),
         randomness="error")(dp_eval.stack_states(states),
                             torch.stack(rights).float())
-    fig = dict(compared=[], with_ur=[], ur_flags_agree=[], ur_max_diff=[])
-    for b, o in enumerate(dp_eval.unstack_states(batched, len(up))):
-        s = serial[b].kfs
-        slot = int(torch.nonzero(s.valid & ~states[b].kfs.valid)[0, 0])
-        same = (s.kp_valid[slot] & o.kfs.kp_valid[slot]
-                & ((s.kp_xy[slot] - o.kfs.kp_xy[slot]).abs().amax(-1)
-                   <= 1e-5))
-        ur_s, ur_o = s.kp_ur[slot][same], o.kfs.kp_ur[slot][same]
-        both = (ur_s >= 0) & (ur_o >= 0)
-        fig["compared"].append(int(same.sum()))
-        fig["with_ur"].append(int(both.sum()))
-        fig["ur_flags_agree"].append(
-            float(((ur_s >= 0) == (ur_o >= 0)).float().mean()))
-        fig["ur_max_diff"].append(float((ur_s - ur_o)[both].abs().max())
-                                  if bool(both.any()) else None)
+    fig = held_to_serial(dp_eval.unstack_states(batched, len(up)), serial,
+                         states)
     fig["serial_landmarks"] = [int(s.map.valid.sum()) for s in serial]
-    fig["ok"] = all(n >= 50 and a >= 0.99 and d is not None and d <= 1e-3
-                    for n, a, d in zip(fig["with_ur"], fig["ur_flags_agree"],
-                                       fig["ur_max_diff"]))
+    # the branch decides the right-image u: rows of each new keyframe that
+    # have one
+    fig["with_ur"] = [
+        int((s.kfs.kp_ur[int(torch.nonzero(s.kfs.valid & ~t.kfs.valid)[0, 0])]
+             >= 0).sum()) for s, t in zip(serial, states)]
     return fig
 
 
@@ -2119,6 +2143,44 @@ def attributed_window(phases, cfg, frames, device):
     return dict(stages=table, missing=missing)
 
 
+def bench_child(here):
+    """python -m trackingbench_slam_tpu_torch.bench --frames N_FRAMES in a
+    fresh process on the same card: its last line, parsed, with the
+    child's seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "trackingbench_slam_tpu_torch.bench", "--frames",
+                           str(N_FRAMES)], cwd=here, check=True, timeout=900,
+                          stdout=subprocess.PIPE, text=True)
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+def bench_gate(line):
+    """The bench child's line: bench.py's keys and the port's, a positive
+    rate, ATE < 0.01 m, the CPU reference over all N_FRAMES frames, and
+    vs_baseline equal to value / cpu_reference_fps within the roundings of
+    the three (each to 3 decimals)."""
+    from trackingbench_slam_tpu_torch.bench import (EXTRA_KEYS, LINE_KEYS,
+                                                    STAGE_KEYS)
+    ex = line["extra"]
+    if not (set(line) - {"seconds"} == set(LINE_KEYS)
+            and set(ex) == set(EXTRA_KEYS) | {"stage_ms", "dp_eval"}
+            and set(ex["stage_ms"]) == set(STAGE_KEYS)
+            and set(ex["dp_eval"]) == {"B1_seq_frames_per_s",
+                                       "B8_seq_frames_per_s",
+                                       "batch_speedup"}):
+        raise AssertionError(f"bench: the line's keys: {line}")
+    value, cpu = line["value"], ex["cpu_reference_fps"]
+    ratio = value / cpu
+    rounding = 5e-4 + ratio * (5e-4 / value + 5e-4 / cpu)
+    if not (value > 0 and ex["ate_rmse_m"] < 0.01
+            and ex["cpu_reference_frames"] == N_FRAMES
+            and abs(line["vs_baseline"] - ratio) <= rounding):
+        raise AssertionError(f"bench failed its gates: {line}")
+
+
 def profiler_history(here):
     """python -m trackingbench_slam_tpu_torch.profile_main_path --history
     in a child process on the same card: three fresh BA-on main-path runs,
@@ -2145,10 +2207,9 @@ def main():
     sys.path.insert(0, here)
     import trackingbench_slam_tpu_torch  # noqa: F401  (precision pins)
     from trackingbench_slam_tpu_torch import parity
+    from trackingbench_slam_tpu_torch.bench import hand_kernel_counters
     from trackingbench_slam_tpu_torch.kernel_bench import kernel_inputs
-    from trackingbench_slam_tpu_torch.ops.cuda import (build, fast_kernel,
-                                                       lk_kernel,
-                                                       patch_kernel)
+    from trackingbench_slam_tpu_torch.ops.cuda import build
     from trackingbench_slam_tpu_torch.utils.corridor import (
         corridor_frames, loop_bench_config, loop_frames, main_path_config,
         main_path_config_ba_off)
@@ -2209,10 +2270,7 @@ def main():
                     f"{c['launches_per_call']} launch ({c['ms']:.4f} ms, "
                     f"plain {c['plain_ms']:.3f} ms)" for c in lk_cases))
 
-    counters = {"lk_align": lk_kernel.lk_align_cuda,
-                "fast_score_nms": fast_kernel.fast_score_nms_cuda,
-                "orb_describe": patch_kernel.orb_describe_cuda,
-                "anchor_cells": patch_kernel.anchor_cells_cuda}
+    counters = hand_kernel_counters()
     dev = torch.device("cuda")
 
     def gate(name, fig, launch_ok):
@@ -2561,34 +2619,52 @@ def main():
     batched, batched_calls, track_steps = batched_phase(
         cfg, frames, gt, scene, counters, dev)
     bl, sl = batched["batched_launches"], batched["serial_launches"]
+    held, mixed = batched["held"], batched["mixed_branch"]
+    bisect, rates = batched["batch_check"], batched["dp_eval_bench"]
     log(f"[batched] {BATCH} sequences at {cfg.camera.width}x"
         f"{cfg.camera.height} (from frames {batched['starts']}), "
         f"{BATCH_TRACK_STEPS} batched track steps and one batched "
-        f"track-and-keyframe step against serial runs: max |d pose| "
-        f"{batched['track_pose_max_diff']:.2e} after tracking, "
-        f"{batched['kf_pose_max_diff']:.2e} after the keyframe (state "
-        f"leaves differing, [entries, max |diff|]: "
-        f"{batched['kf_state_leaves_differing']}), inliers "
-        f"{batched['inliers']} (serial {batched['serial_inliers']}); "
-        f"launches a step batched {bl} against serial {sl}; bench.py "
-        f"dp_eval_bench "
-        f"({DP_STEPS} steps): B1 {batched['seq_frames_per_s']['B1']:.2f}, "
-        f"B{BATCH} {batched['seq_frames_per_s'][f'B{BATCH}']:.2f} "
-        f"sequence-frames/s (x{batched['batch_speedup']:.2f}); mixed "
-        f"stereo-prior branch keyframe against serial: kp_ur flags agree "
-        f"{batched['mixed_branch']['ur_flags_agree']}, max |diff| "
-        f"{batched['mixed_branch']['ur_max_diff']} px over "
-        f"{batched['mixed_branch']['with_ur']} rows; the phase "
-        f"took {batched['seconds']:.1f} s")
+        f"track-and-keyframe step against serial runs: pyramid levels "
+        f"differing after each track step "
+        f"{batched['pyramids_differing_after_track_steps']}; max |d pose| "
+        f"{batched['track_pose_max_diff']:.2e} after tracking (tracked "
+        f"state leaves differing, [entries, of, max |diff|]: "
+        f"{batched['track_state_leaves_differing']}), "
+        f"{batched['kf_pose_max_diff']:.2e} after the keyframe; after it "
+        f"the leaves differing {held['leaves_differing']}, largest "
+        f"{held['largest']}, fresh keypoint positions differing "
+        f"{held['fresh_xy_differing']} of {held['fresh_rows']} rows, gates "
+        f"failed {held['failures']}; inliers {batched['inliers']} (serial "
+        f"{batched['serial_inliers']}); launches a step batched {bl} "
+        f"against serial {sl}; the phase took {batched['seconds']:.1f} s")
+    log(f"[batched: mixed branch] a fresh sequence beside {BATCH - 1} "
+        f"tracked ones, one batched keyframe step against serial ones: "
+        f"leaves differing {mixed['leaves_differing']}, fresh keypoint "
+        f"positions differing {mixed['fresh_xy_differing']} of "
+        f"{mixed['fresh_rows']} rows, rows with a right-image u "
+        f"{mixed['with_ur']}, gates failed {mixed['failures']}")
+    log(f"[batched: batch_check] the keyframe frame's calls on the serial "
+        f"states, serial against vmap on the same inputs: differing by "
+        f"stage {bisect['differing_by_stage']}; image side differing "
+        f"{bisect['image_side_differing']}; not repeatable "
+        f"{bisect['not_repeatable']}; whole steps "
+        f"{bisect['steps']}")
+    log(f"[batched: dp_eval_bench] {DP_STEPS} steps: B1 "
+        f"{rates['B1_seq_frames_per_s']:.2f}, B{BATCH} "
+        f"{rates[f'B{BATCH}_seq_frames_per_s']:.2f} sequence-frames/s "
+        f"(x{rates['batch_speedup']:.2f})")
     kf_expected = dict(sl["track_and_keyframe_step"])
     kf_expected["lk_align"] += 1   # both sides of the stereo-prior branch
     if not (batched["track_pose_max_diff"] <= 1e-5
             and batched["kf_pose_max_diff"] <= 1e-5
+            and not any(batched["pyramids_differing_after_track_steps"])
+            and not held["failures"] and not mixed["failures"]
+            and min(mixed["with_ur"]) >= 50
             and batched["sequences_distinct"]
             and bl["track_step"] == sl["track_step"]
-            and bl["track_and_keyframe_step"] == kf_expected
-            and batched["mixed_branch"]["ok"]):
-        raise AssertionError(f"batched tracking failed its gates: {batched}")
+            and bl["track_and_keyframe_step"] == kf_expected):
+        raise AssertionError(f"batched tracking failed its gates: "
+                             f"{ {k: v for k, v in batched.items() if k != 'batch_check'} }")
     bcases = check_batched(batched_calls)
     lk_cases += bcases["lk"]
     fast_cases += bcases["fast"]
@@ -2642,6 +2718,19 @@ def main():
         f"{again['poses_equal_first_run']}, launches {again['launches']}")
     if not (again["poses_equal_first_run"] and again["launches"] == launches):
         raise AssertionError(f"the BA-on main path did not repeat: {again}")
+
+    phases.enter("bench")
+    line = bench_child(here)
+    ex = line["extra"]
+    log(f"[bench] python -m trackingbench_slam_tpu_torch.bench --frames "
+        f"{N_FRAMES} in a fresh process ({line['seconds']:.1f} s): "
+        + json.dumps({k: v for k, v in line.items() if k != "seconds"}))
+    log(f"[bench] {line['value']} frames/s against the CPU reference's "
+        f"{ex['cpu_reference_fps']} on the same {ex['cpu_reference_frames']} "
+        f"frames: vs_baseline {line['vs_baseline']} (BASELINE.json asks for "
+        f"2); ATE {ex['ate_rmse_m']} m (CPU reference "
+        f"{ex['cpu_reference_ate_m']} m)")
+    bench_gate(line)
 
     phases.enter("profiles")
     t0 = time.perf_counter()
@@ -2771,6 +2860,7 @@ def main():
               "loop_bench": dict(loop, tpu_accuracy=TPU_LOOP_ACCURACY),
               "direct": direct, "indirect": indirect, "mono": mono,
               "sequences": seqs, "batched": batched, "ba": ba,
+              "bench": line,
               "seconds": time.perf_counter() - t_start}
     log(f"[time] the whole script took {result['seconds']:.1f} s")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

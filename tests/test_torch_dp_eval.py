@@ -22,7 +22,7 @@ from trackingbench_slam_tpu.utils.config import PipelineConfig as JConfig
 from trackingbench_slam_tpu_torch.geometry import camera as t_cam
 from trackingbench_slam_tpu_torch.models import vo as t_vo
 from trackingbench_slam_tpu_torch.ops.cuda import batch
-from trackingbench_slam_tpu_torch.parallel import dp_eval
+from trackingbench_slam_tpu_torch.parallel import batch_check, dp_eval
 from trackingbench_slam_tpu_torch.utils.config import (CameraConfig,
                                                        ExtractorConfig,
                                                        MapConfig,
@@ -82,6 +82,19 @@ def _max_diff(a, b):
     assert len(fa) == len(fb)
     return max((x.double() - y.double()).abs().max().item()
                for x, y in zip(fa, fb) if x.numel())
+
+
+def _assert_image_side_equal(o, s):
+    """The leaves the images alone determine, bit-equal: every pyramid
+    level, keypoint validity and levels, descriptors (the frame's and the
+    keyframe ring's)."""
+    for x, y in zip(o.prev.pyramid + o.prev.lk_pyr,
+                    s.prev.pyramid + s.prev.lk_pyr):
+        assert torch.equal(x, y)
+    for name in ("valid", "kp_level", "desc"):
+        assert torch.equal(getattr(o.prev, name), getattr(s.prev, name)), name
+    for name in ("kp_valid", "kp_level", "desc"):
+        assert torch.equal(getattr(o.kfs, name), getattr(s.kfs, name)), name
 
 
 @pytest.fixture()
@@ -231,6 +244,7 @@ def test_batched_keyframe_step_takes_each_sequences_branch(
     assert int(serial[0].kfs.valid.sum()) == 1
     for b in range(B):
         assert _max_diff(out[b], serial[b]) < 1e-5, b
+        _assert_image_side_equal(out[b], serial[b])
     assert int(serial[0].map.valid.sum()) > 50
 
 
@@ -251,4 +265,81 @@ def test_batched_track_and_keyframe_step_equals_serial(setup,
         np.testing.assert_allclose(o.T_cw.numpy(), serial[b].T_cw.numpy(),
                                    atol=1e-5)
         assert _max_diff(o, serial[b]) < 1e-3
+        _assert_image_side_equal(o, serial[b])
         assert int(o.kfs.valid.sum()) == 2
+
+
+def test_batch_check_finds_no_image_side_call_differing(setup):
+    """parallel/batch_check.py on the keyframe frame's inputs: every stage
+    of the track and keyframe steps recorded, no call that differs between
+    the serial and the vmapped run on the same inputs (on the CPU not even
+    a float: the pose solve's sums and the se3 products are fixed-order),
+    every call repeating itself, and the whole batched steps equal to the
+    serial ones."""
+    cfg, cam, seqs, boot = setup
+    report = batch_check.batch_check(
+        boot, [seqs[b][1][0] for b in range(B)],
+        [seqs[b][1][1] for b in range(B)], cam, cfg,
+        dp_eval.draw_uniform(_generators(), cfg))
+    stages = {c["stage"] for c in report["calls"]}
+    assert set(batch_check.STAGES) | {"track.rest", "keyframe.rest"} \
+        <= stages
+    assert report["image_side_differing"] == []
+    assert report["not_repeatable"] == []
+    assert report["differing_by_stage"] == {}
+    assert report["steps"] == {"track_step": {},
+                               "track_and_keyframe_step": {}}
+
+
+def test_dp_eval_bench_reports_both_batch_sizes(setup):
+    cfg, _, seqs, _ = setup
+    frames = [tuple(x.numpy() for x in f) for f in seqs[0]]
+    out = dp_eval.dp_eval_bench(cfg, frames, B=2, steps=1, device="cpu")
+    assert set(out) == {"B1_seq_frames_per_s", "B2_seq_frames_per_s",
+                        "batch_speedup"}
+    assert all(v > 0 for v in out.values())
+    assert out["batch_speedup"] == pytest.approx(
+        out["B2_seq_frames_per_s"] / out["B1_seq_frames_per_s"])
+
+
+def test_chip_smoke_holds_batched_keyframes_to_serial(setup):
+    """chip_smoke.py's gate of a batched keyframe step: equal states pass;
+    a descriptor bit, a fresh keypoint moved by 1e-3 px, a pyramid pixel,
+    the atlas or a landmark past 1e-4 m fail; a landmark within 1e-4 m
+    passes."""
+    import chip_smoke
+    cfg, cam, seqs, boot = setup
+    before = [t_vo.track_step(boot[b], seqs[b][1][0], cam, cfg, g)
+              for b, g in enumerate(_generators())]
+    serial = [t_vo.keyframe_step(s, seqs[b][1][1], cam, cfg)
+              for b, s in enumerate(before)]
+    assert chip_smoke.held_to_serial(serial, serial, before)["failures"] == []
+    s0 = serial[0]
+    fresh = int(torch.nonzero(s0.prev.valid & ~before[0].prev.valid)[0, 0])
+    live = int(torch.nonzero(s0.map.valid)[0, 0])
+
+    def failures(state):
+        return chip_smoke.held_to_serial([state] + serial[1:], serial,
+                                         before)["failures"]
+
+    desc = s0.prev.desc.clone()
+    desc[fresh, 0] ^= 1
+    assert failures(s0._replace(prev=s0.prev._replace(desc=desc))) == [
+        ".prev.desc"]
+    xy = s0.prev.kp_xy.clone()
+    xy[fresh, 0] += 1e-3
+    assert failures(s0._replace(prev=s0.prev._replace(kp_xy=xy))) == [
+        "fresh keypoint positions"]
+    pyr = list(s0.prev.pyramid)
+    pyr[1] = pyr[1].clone()
+    pyr[1][5, 5] += 1e-3
+    assert failures(s0._replace(prev=s0.prev._replace(
+        pyramid=tuple(pyr)))) == [".prev.pyramid[1]"]
+    atlas = s0.map.anchor_atlas.clone()
+    atlas[0, 0] += 1e-3
+    assert failures(s0._replace(map=s0.map._replace(
+        anchor_atlas=atlas))) == [".map.anchor_atlas"]
+    for shift, failed in ((5e-5, []), (2e-4, [".map.pos"])):
+        pos = s0.map.pos.clone()
+        pos[live, 0] += shift
+        assert failures(s0._replace(map=s0.map._replace(pos=pos))) == failed

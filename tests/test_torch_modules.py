@@ -137,6 +137,45 @@ def test_pyramid_matches_jax_image_resize_at_borders(shape, scale):
         np.testing.assert_allclose(b, a, atol=1e-3)
 
 
+IMAGE_OPS = {
+    "resize_bilinear": lambda x: t_image.resize_bilinear(x, (95, 144)),
+    "build_pyramid": lambda x: tuple(t_image.build_pyramid(x, 3, 0.8)),
+    "gaussian_blur": t_image.gaussian_blur,
+}
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("op", sorted(IMAGE_OPS))
+def test_image_ops_under_vmap_equal_the_per_image_calls(op, b):
+    """The image side of a batched step must be bit-equal to the serial
+    one: each image op under torch.func.vmap gives the per-image result
+    exactly."""
+    fn = IMAGE_OPS[op]
+    imgs = torch.stack([t(make_textured_image(119, 180, seed=10 + i))
+                        for i in range(b)])
+    batched = torch.func.vmap(fn)(imgs)
+    for i in range(b):
+        one = fn(imgs[i])
+        got = torch.utils._pytree.tree_map(lambda x, i=i: x[i], batched)
+        for x, y in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(one)):
+            assert torch.equal(x, y), (op, b, i)
+
+
+def test_resize_is_a_gather_and_blend():
+    """No matrix product in the resize (its rounding moves with the
+    batch): each axis is two index_selects, two multiplies and an add."""
+    img = t(make_textured_image(60, 90, seed=5))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t_image.resize_bilinear(img, (48, 72))
+    ops = {e.key: e.count for e in prof.key_averages()}
+    assert not {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm",
+                "aten::einsum"} & set(ops), ops
+    assert ops["aten::index_select"] == 4 and ops["aten::mul"] == 4
+    assert ops["aten::add"] == 2
+
+
 def test_blur_and_bilinear_sample_match_reference(rng):
     img = make_textured_image(60, 90, seed=4)
     np.testing.assert_allclose(t_image.gaussian_blur(t(img)).numpy(),

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from trackingbench_slam_tpu_torch.ops.linalg import dot, small_matmul
+
 
 def hat(v: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric."""
@@ -35,8 +37,8 @@ def vee(m: torch.Tensor) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., n) x (..., n) -> (..., 1)."""
-    return (a * b).sum(-1, keepdim=True)
+    """(..., n) x (..., n) -> (..., 1), summed in order."""
+    return dot(a, b)[..., None]
 
 
 def _sinc_terms(theta2: torch.Tensor):
@@ -58,7 +60,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     sin_theta = torch.where(small, torch.zeros_like(w2),
                             torch.sqrt(torch.where(small, torch.ones_like(w2),
                                                    w2)))
-    trace = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1, keepdim=True)
+    trace = R[..., 0, 0:1] + R[..., 1, 1:2] + R[..., 2, 2:3]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     theta = torch.atan2(sin_theta, cos_theta)
     sin_safe = torch.where(small, torch.ones_like(sin_theta), sin_theta)
@@ -81,11 +83,11 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
     rho, phi = xi[..., :3], xi[..., 3:]
     a, b, c = (s[..., None] for s in _sinc_terms(_dot(phi, phi)))
     K = hat(phi)
-    KK = K @ K
+    KK = small_matmul(K, K)
     eye3 = torch.eye(3, dtype=xi.dtype, device=xi.device)
     R = eye3 + a * K + b * KK
     V = eye3 + b * K + c * KK
-    return from_rt(R, (V @ rho[..., None])[..., 0])
+    return from_rt(R, small_matmul(V, rho[..., None])[..., 0])
 
 
 def log(T: torch.Tensor) -> torch.Tensor:
@@ -108,22 +110,24 @@ def log(T: torch.Tensor) -> torch.Tensor:
         small, 1.0 / 12.0 + theta2 / 720.0,
         (1.0 - half * torch.cos(half) / torch.sin(half)) / th2)
     Vinv = (torch.eye(3, dtype=T.dtype, device=T.device) - 0.5 * K
-            + coef[..., None] * (K @ K))
-    return torch.cat([(Vinv @ t[..., None])[..., 0], phi], -1)
+            + coef[..., None] * small_matmul(K, K))
+    return torch.cat([small_matmul(Vinv, t[..., None])[..., 0], phi], -1)
 
 
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4, 4) rigid transforms."""
     Rt = T[..., :3, :3].transpose(-1, -2)
-    return from_rt(Rt, -(Rt @ T[..., :3, 3:])[..., 0])
+    return from_rt(Rt, -small_matmul(Rt, T[..., :3, 3:])[..., 0])
 
 
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    return A @ B
+    return small_matmul(A, B)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply (4, 4) T to (..., 3) points."""
+    """Apply (4, 4) T to (..., 3) points. A plain product: unlike the
+    (4, 4) and (3, 3) ones above, it gave the same bits under a batch on
+    the H100 (parallel/batch_check.py)."""
     return pts @ T[:3, :3].T + T[:3, 3]
 
 
@@ -133,6 +137,6 @@ def normalize(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     I3 = torch.eye(3, dtype=T.dtype, device=T.device)
     for _ in range(2):
-        RtR = R.transpose(-1, -2) @ R
-        R = (R @ (3.0 * I3 - RtR)) * 0.5
+        RtR = small_matmul(R.transpose(-1, -2), R)
+        R = small_matmul(R, 3.0 * I3 - RtR) * 0.5
     return from_rt(R, T[..., :3, 3])

@@ -25,6 +25,7 @@ from trackingbench_slam_tpu_torch.ops import packing
 from trackingbench_slam_tpu_torch.ops.cuda.patch_kernel import (
     CELL as ATLAS_CELL, anchor_cells)
 from trackingbench_slam_tpu_torch.ops.hamming import popcount32
+from trackingbench_slam_tpu_torch.ops.linalg import fixed_sum, norm
 from trackingbench_slam_tpu_torch.ops.stats import median
 
 
@@ -311,14 +312,12 @@ def update_normal_and_depth(m: MapState, kfs: KeyframeStore,
     obs_ok = (m.obs_kf >= 0) & m.valid[:, None]
     centers = se3.inverse(kfs.T_cw)[:, :3, 3]
     d = m.pos[:, None, :] - _centers_of(centers, m.obs_kf)
-    dn = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-9)
+    dn = d / torch.clamp(norm(d)[..., None], min=1e-9)
     dn = torch.where(obs_ok[..., None], dn, torch.zeros_like(dn))
     n_obs = torch.clamp(obs_ok.sum(1), min=1)
-    normal = dn.sum(1) / n_obs[:, None]
-    normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1,
-                                                    keepdim=True), min=1e-9)
-    ref_dist = torch.linalg.norm(m.pos - _centers_of(centers, m.ref_kf),
-                                 dim=-1)
+    normal = fixed_sum(dn, 1) / n_obs[:, None]
+    normal = normal / torch.clamp(norm(normal)[..., None], min=1e-9)
+    ref_dist = norm(m.pos - _centers_of(centers, m.ref_kf))
     s = torch.full((), scale_factor, dtype=torch.float32, device=m.pos.device)
     max_dist = ref_dist * torch.pow(s, -m.ref_level.float())
     min_dist = max_dist * (s ** (num_levels - 1))

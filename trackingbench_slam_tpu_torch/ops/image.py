@@ -5,11 +5,19 @@ Port of trackingbench_slam_tpu/ops/image.py. Images are float32 (H, W) in
 
 `resize_bilinear` reproduces jax.image.resize(..., "linear",
 antialias=False) rather than F.interpolate: it builds the same normalized
-triangle-kernel weight matrices (sample x_in = (x_out + 0.5) / scale - 0.5,
-taps outside the image dropped and the rest renormalized) and applies them
-as two float32 matrix products. At the far border of a x0.8 level the last
-output column samples x = W - 0.875, past the last pixel; the renormalized
-weights give the edge pixel there, exactly as the reference does.
+triangle-kernel weights (sample x_in = (x_out + 0.5) / scale - 0.5, taps
+outside the image dropped and the rest renormalized). Without antialiasing
+an output has at most two nonzero taps, so each axis is applied as a
+two-tap gather and blend, x[i0] * w0 + x[i1] * w1, in separate
+elementwise multiply and add ops. Every element is then rounded the same
+way whatever the leading shape, so a resize under torch.func.vmap equals
+the per-image resizes bit for bit; a matrix product, whose rounding
+changes once a batch folds into its rows, did not (on the H100). A fused
+multiply-add op is avoided too: a CPU kernel may fuse in its vector body
+and not in its scalar tail, which would make an element's rounding depend
+on its position. At the far border of a x0.8 level the last output column
+samples x = W - 0.875, past the last pixel; its one renormalized tap has
+weight 1 and gives the edge pixel there, exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -51,8 +59,38 @@ def _resize_weights_np(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
-    return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
+def _resize_taps_np(in_size: int, out_size: int):
+    """(i0, i1, w0, w1): each output's first and last nonzero tap of
+    `_resize_weights_np` and their weights. An output with one tap has
+    i1 = i0 and w1 = 0; one with none has both weights 0."""
+    w = _resize_weights_np(in_size, out_size)
+    nz = w != 0
+    if int(nz.sum(0).max(initial=0)) > 2:
+        raise ValueError(f"resize {in_size} -> {out_size}: more than two "
+                         "taps an output")
+    cols = np.arange(out_size)
+    i0 = np.argmax(nz, axis=0)
+    i1 = in_size - 1 - np.argmax(nz[::-1], axis=0)
+    i1 = np.where(nz.any(0), i1, i0)
+    w0 = w[i0, cols]
+    w1 = np.where(i1 != i0, w[i1, cols], np.float32(0.0))
+    return i0, i1, w0.astype(np.float32), w1.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(in_size: int, out_size: int, device):
+    i0, i1, w0, w1 = _resize_taps_np(in_size, out_size)
+    return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+            torch.from_numpy(w0).to(device), torch.from_numpy(w1).to(device))
+
+
+def _blend_axis(x: torch.Tensor, dim: int, taps) -> torch.Tensor:
+    i0, i1, w0, w1 = taps
+    if dim == -2:
+        w0, w1 = w0[:, None], w1[:, None]
+    a = torch.index_select(x, dim, i0) * w0
+    b = torch.index_select(x, dim, i1) * w1
+    return a + b
 
 
 def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -60,11 +98,9 @@ def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     x = img
     if ow != w:
-        ww = _resize_weights(w, ow, img.device)
-        x = x @ ww
+        x = _blend_axis(x, -1, _resize_taps(w, ow, img.device))
     if oh != h:
-        wh = _resize_weights(h, oh, img.device)
-        x = wh.T @ x
+        x = _blend_axis(x, -2, _resize_taps(h, oh, img.device))
     return x
 
 

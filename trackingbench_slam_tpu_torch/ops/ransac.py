@@ -15,13 +15,18 @@ import math
 import torch
 
 from trackingbench_slam_tpu_torch.ops.fast import stable_topk
-from trackingbench_slam_tpu_torch.ops.linalg import cholesky, cholesky_apply
+from trackingbench_slam_tpu_torch.ops.linalg import (cholesky, cholesky_apply,
+                                                     fixed_sum, norm,
+                                                     small_matmul, sum_last)
 
 
 def _normalize_points(pts: torch.Tensor):
-    """Hartley normalization: center + mean distance sqrt(2)."""
-    mean = pts.mean(0)
-    d = torch.linalg.norm(pts - mean, dim=-1).mean() + 1e-9
+    """Hartley normalization: center + mean distance sqrt(2). Sums and
+    products here and below are fixed-order (ops/linalg.py), so that the
+    votes do not change with a batch under vmap."""
+    n = pts.shape[0]
+    mean = fixed_sum(pts) / n
+    d = fixed_sum(norm(pts - mean)) / n + 1e-9
     s = math.sqrt(2.0) / d
     # built out of place, so that the function also runs under vmap
     z, one = torch.zeros_like(s), torch.ones_like(s)
@@ -35,7 +40,7 @@ def _min_eigvec(M: torch.Tensor, iters: int = 4) -> torch.Tensor:
     """Smallest eigenvector of (..., n, n) symmetric PSD matrices by inverse
     iteration on the Cholesky factor of M + eps I."""
     n = M.shape[-1]
-    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+    tr = sum_last(torch.diagonal(M, dim1=-2, dim2=-1))
     eps = 1e-7 * (tr + 1e-12)
     A = M + eps[..., None, None] * torch.eye(n, dtype=M.dtype,
                                              device=M.device)
@@ -43,8 +48,7 @@ def _min_eigvec(M: torch.Tensor, iters: int = 4) -> torch.Tensor:
     v = torch.full_like(M[..., 0], 1.0 / math.sqrt(n))
     for _ in range(iters):
         w = cholesky_apply(L, v)
-        v = w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True),
-                            min=1e-20)
+        v = w / torch.clamp(norm(w)[..., None], min=1e-20)
     return v
 
 
@@ -55,10 +59,10 @@ def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     ones = torch.ones_like(x1)
     A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      ones], dim=-1)
-    AtA = A.transpose(-1, -2) @ A
+    AtA = small_matmul(A.transpose(-1, -2), A)
     F = _min_eigvec(AtA).reshape(-1, 3, 3)
-    v3 = _min_eigvec(F.transpose(-1, -2) @ F)
-    return F - (F @ v3[..., None]) * v3[..., None, :]
+    v3 = _min_eigvec(small_matmul(F.transpose(-1, -2), F))
+    return F - small_matmul(F, v3[..., None]) * v3[..., None, :]
 
 
 def _sampson_epipolar_dist(F: torch.Tensor, p1: torch.Tensor,
@@ -67,12 +71,12 @@ def _sampson_epipolar_dist(F: torch.Tensor, p1: torch.Tensor,
     distance."""
     h1 = torch.cat([p1, torch.ones_like(p1[:, :1])], dim=-1)
     h2 = torch.cat([p2, torch.ones_like(p2[:, :1])], dim=-1)
-    l2 = h1 @ F.transpose(-1, -2)
-    l1 = h2 @ F
-    d2 = torch.abs((h2 * l2).sum(-1)) / torch.clamp(
-        torch.linalg.norm(l2[..., :2], dim=-1), min=1e-9)
-    d1 = torch.abs((h1 * l1).sum(-1)) / torch.clamp(
-        torch.linalg.norm(l1[..., :2], dim=-1), min=1e-9)
+    l2 = small_matmul(h1, F.transpose(-1, -2))
+    l1 = small_matmul(h2, F)
+    d2 = torch.abs(sum_last(h2 * l2)) / torch.clamp(norm(l2[..., :2]),
+                                                    min=1e-9)
+    d1 = torch.abs(sum_last(h1 * l1)) / torch.clamp(norm(l1[..., :2]),
+                                                    min=1e-9)
     return torch.maximum(d1, d2)
 
 
@@ -101,7 +105,7 @@ def fundamental_ransac(p1: torch.Tensor, p2: torch.Tensor,
     gumbel = -torch.log(-torch.log(uniform + 1e-12))
     _, idx = stable_topk(logits[None, :] + gumbel, 8)        # (S, 8)
     Fs = _eight_point(p1n[idx], p2n[idx])
-    F_px = T2.T @ Fs @ T1
+    F_px = small_matmul(small_matmul(T2.T, Fs), T1)
     d = _sampson_epipolar_dist(F_px, p1, p2)                  # (S, N)
     votes = ((d < threshold) & valid).sum(-1)
     # the winner's rows by index_select: no host read of `best`

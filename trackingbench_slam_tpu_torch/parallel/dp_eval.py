@@ -22,6 +22,10 @@ Usage:
     states = stack_states([s0, ..., s7])            # batched VOState
     u = draw_uniform(generators, cfg)               # (B, 256, N)
     states = dp_track_step(states, imgs, cam, cfg, u)   # imgs (B, H, W)
+
+`dp_eval_bench` is bench.py's timing of the batched step, shared by the
+port's bench entry point (trackingbench_slam_tpu_torch/bench.py) and
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -88,3 +92,44 @@ def dp_track_and_keyframe_step(states: vo_mod.VOState, imgs_l: torch.Tensor,
     with torch.profiler.record_function("dp.track_and_keyframe_step"):
         return torch.func.vmap(step, randomness="error")(states, imgs_l,
                                                           imgs_r, uniform)
+
+
+def dp_eval_bench(cfg, frames, B: int = 8, steps: int = 16,
+                  device=None) -> dict:
+    """bench.py's dp_eval_bench (bench.py:512-545) for the port: a
+    StereoVO over frames 0-2, its state broadcast to B = 1 and to B, each
+    sequence drawing from its own generator; one warm step, then `steps`
+    batched track steps on frame 3 between two device fences. Returns
+    sequence-frames/s at each B (`B1_seq_frames_per_s`,
+    `B{B}_seq_frames_per_s`) and `batch_speedup`, unrounded. Runs on the
+    card unless `device` names another."""
+    import time
+
+    from trackingbench_slam_tpu_torch.geometry.camera import CameraParams
+    from trackingbench_slam_tpu_torch.utils.device import (resolve_device,
+                                                           upload_image)
+    from trackingbench_slam_tpu_torch.utils.profiling import fence
+    dev = resolve_device(device)
+    cam = CameraParams.from_config(cfg.camera, dev)
+    base = vo_mod.StereoVO(cfg, device=dev)
+    for i in range(3):
+        base.track(*frames[i])
+    img = upload_image(frames[3][0], dev).float()
+    out = {}
+    for b in (1, B):
+        states = stack_states([base.state] * b)
+        imgs = img.expand((b,) + tuple(img.shape))
+        gens = [torch.Generator(device=dev).manual_seed(i) for i in range(b)]
+        states = dp_track_step(states, imgs, cam, cfg,
+                               draw_uniform(gens, cfg))
+        fence(states)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            states = dp_track_step(states, imgs, cam, cfg,
+                                   draw_uniform(gens, cfg))
+        fence(states)
+        out[f"B{b}_seq_frames_per_s"] = b * steps / (time.perf_counter()
+                                                     - t0)
+    out["batch_speedup"] = (out[f"B{B}_seq_frames_per_s"]
+                            / out["B1_seq_frames_per_s"])
+    return out

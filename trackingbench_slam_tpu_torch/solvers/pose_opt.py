@@ -15,7 +15,8 @@ import torch
 
 from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
 from trackingbench_slam_tpu_torch.geometry import se3
-from trackingbench_slam_tpu_torch.ops.linalg import cholesky, cholesky_apply
+from trackingbench_slam_tpu_torch.ops.linalg import (cholesky, cholesky_apply,
+                                                     fixed_sum)
 from trackingbench_slam_tpu_torch.utils.config import SolverConfig
 
 
@@ -32,7 +33,7 @@ def _residuals(cam, T_cw, pts_w, obs_px):
 
 
 def _chi2(r, inv_sigma2):
-    return (r * r).sum(-1) * inv_sigma2
+    return (r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]) * inv_sigma2
 
 
 def _huber_weight(chi2, delta: float):
@@ -56,12 +57,16 @@ def _normal_equations(cam, T_cw, pts_w, obs_px, inv_sigma2, weight_mask,
         w = w * _huber_weight(chi2, huber_delta)
     J = cam_mod.project_jacobian(cam, pc)               # (N, 2, 6)
     Jw = J * w[:, None, None]
-    H = torch.einsum("nij,nik->jk", Jw, J)
-    b = torch.einsum("nij,ni->j", Jw, r)
     chi2m = torch.where(behind, torch.zeros_like(chi2), chi2)
     rho = chi2m if huber_delta is None else _huber_rho(chi2m, huber_delta)
-    cost = torch.where(weight_mask > 0, rho, torch.zeros_like(rho)).sum()
-    return H, b, cost
+    cost = torch.where(weight_mask > 0, rho, torch.zeros_like(rho))
+    # each point's terms, then H, b and the cost summed over the points in
+    # one fixed order (ops/linalg.py): the same bits at any batch size
+    H = (Jw[:, 0, :, None] * J[:, 0, None, :]
+         + Jw[:, 1, :, None] * J[:, 1, None, :])
+    b = Jw[:, 0] * r[:, 0:1] + Jw[:, 1] * r[:, 1:2]
+    sums = fixed_sum(torch.cat([H.reshape(-1, 36), b, cost[:, None]], -1))
+    return sums[:36].reshape(6, 6), sums[36:42], sums[42]
 
 
 def _chol6_solve(A, b):
