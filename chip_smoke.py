@@ -50,17 +50,28 @@ runs before the first torch.profiler session of the process (PHASES):
      hashing to the JAX record's (trackingbench_slam_tpu_torch/records/
      jax_full_width.npz, parity.py); a vocabulary trained on the card's
      ORB descriptors of every 12th left image; run A without a LoopCloser
-     twice, whose per-frame poses must be torch.equal, and run B with it:
-     the closer must close >= 1 loop, its closing error must be < 0.05 m
-     and below the closer-less run's, and every counter must move in the
-     run with the closer; then run C without the closer on the record's
-     RANSAC draws (run A's) and run D with the closer on the record's
-     vocabulary and run B's draws. Each of A-D is held to its JAX run
-     frame by frame (first frame > 1 cm from JAX, lost frames, keyframe
-     and BA frames, loops and relocalizations, closing errors); C and D
-     must hold: until the first frame at which either package flags lost,
-     keyframe and BA frames equal to the record's and positions within
-     1 cm of it;
+     twice, whose per-frame poses must be torch.equal, and run B with it,
+     in which every counter must move; then run C without the closer on
+     the record's RANSAC draws (run A's) and run D with the closer on the
+     record's vocabulary and run B's draws. Each of A-D is held to its JAX
+     run frame by frame (first frame > 1 cm from JAX, lost frames,
+     keyframe and BA frames, loops and relocalizations, closing errors); C
+     and D must hold: until the first frame at which either package flags
+     lost, keyframe and BA frames equal to the record's and positions
+     within 1 cm of it. Run B's closing error is printed, not gated: both
+     packages lose frames 36-45 of this circle and what follows is
+     amplified rounding (the record's own run B ends 316,097 m off).
+     Then the tracked loop (utils/corridor.py tracked_loop_config: the JAX
+     package's own loop test's circle at 512x384, at 72 frames
+     (parity.TRACKED_FRAMES), which both packages track without losing a
+     frame; the loop bench's circle at 96-192 frames does not), its frames
+     hashing to the record's: run E with the closer on the record's
+     vocabulary and draws, held to the record at every frame (within 1 cm,
+     keyframe, BA, loop and relocalization frames equal, no frame lost),
+     and run F on the port's own draws and the card's vocabulary, with the
+     closer at RANSAC seeds 0 and 1 and without it at seed 0: each closer
+     run loses no frame, closes >= 1 loop and ends < 0.05 m from the start,
+     below the closer-less run; every counter moves in every run;
   10. direct: DirectVO at bench.py's camera and features on the direct
      pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
      ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
@@ -188,6 +199,7 @@ BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
 # record, trackingbench_slam_tpu_torch/records/jax_full_width.npz
 TPU_LOOP_ACCURACY = dict(without_closer_m=0.7764, with_closer_m=0.0085,
                          loops_closed=2)
+F_SEEDS = (0, 1)        # RANSAC generator seeds of the tracked loop's run F
 ATTRIBUTION_CALLS = 5   # eager calls of each kernel case under the profiler
 ATTRIBUTION_TOL = 0.25  # profiler device time a call against CUDA events
 # main()'s phases in the order it runs them. "timed" phases take figures on
@@ -812,6 +824,56 @@ def loop_bench(cfg, frames, gt, counters, device, rec):
         sync(device)
         out["with_closer"]["correct_trajectory_again_s"].append(
             time.perf_counter() - t0)
+    return out
+
+
+def tracked_loop(counters, device, rec):
+    """The tracked loop (utils/corridor.py tracked_loop_config: the JAX
+    package's own loop test's circle at parity.TRACKED_FRAMES frames,
+    which both packages track without losing a frame): run E with the
+    closer on the record's vocabulary and draws, held to the record at
+    every frame (parity.compare_tracked); run F on the port's own draws
+    and a vocabulary trained here, with the closer at RANSAC seeds F_SEEDS
+    and without it at the first, each closer run gated by
+    parity.tracked_loop_gate against the closer-less one."""
+    from trackingbench_slam_tpu_torch import parity
+    from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
+    from trackingbench_slam_tpu_torch.utils.corridor import closing_error
+    t0 = time.perf_counter()
+    cfg, frames, gt, every = parity.sweep_frames()
+    out = dict(frames=len(frames),
+               size=f"{cfg.camera.width}x{cfg.camera.height}",
+               render_s=time.perf_counter() - t0)
+    record_frames_agree(rec, "loop_tracked", frames)
+    t0 = time.perf_counter()
+    voc, n_desc = train_vocabulary(cfg, frames, device, every=every)
+    out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
+                             seconds=time.perf_counter() - t0)
+    runs = [("E", parity.record_vocabulary(rec, "loop_tracked.voc", device),
+             None, parity.RecordedDraws(rec, "loop_tracked.closer"))]
+    runs += [("F_without", None, F_SEEDS[0], None)]
+    runs += [(f"F_seed{s}", voc, s, None) for s in F_SEEDS]
+    for key, run_voc, seed, draws in runs:
+        vo = parity.loop_bench_tracker(cfg, device, run_voc, seed)
+        rows = parity.StereoRows()
+        t0 = time.perf_counter()
+        fps, launches, _ = drive(vo, frames, counters, rows, draws)
+        arrays = rows.arrays(vo)
+        out[key] = dict(
+            fps=fps, run_s=time.perf_counter() - t0, seed=seed,
+            closing_err_m=closing_error(arrays["poses"], gt),
+            loops=list(vo.loop_events), relocs=list(vo.reloc_events),
+            lost=np.flatnonzero(arrays["lost"]).tolist(),
+            min_inliers=int(arrays["inliers"][1:].min()),
+            ba_calls=vo.ba_calls, launches=launches)
+        if draws is not None:
+            out[key].update(
+                parity=parity.compare_tracked(rec, "loop_tracked.closer",
+                                              arrays),
+                draws_used=draws.used, draws_missing=draws.missing)
+    for s in F_SEEDS:
+        out[f"F_seed{s}"]["gate"] = parity.tracked_loop_gate(
+            out[f"F_seed{s}"], out["F_without"])
     return out
 
 
@@ -2436,9 +2498,61 @@ def main():
     missing = [k for k, v in wi["launches"].items() if v == 0]
     if missing:
         raise AssertionError(f"loop bench: kernels not launched: {missing}")
-    if not (wi["loops_closed"] >= 1 and wi["closing_err_m"] < 0.05
-            and wi["closing_err_m"] < wo["closing_err_m"]):
-        raise AssertionError(f"loop bench failed its gates: {loop}")
+    # run B's closing error is not gated: after the frames both packages
+    # lose at 36-45 its outcome is amplified rounding, which a RANSAC seed
+    # moves from 0.0168 m to 253 m (PERF.md) and with which the JAX
+    # record's own run B ends far off; the tracked loop below gates the
+    # closer instead
+    log(f"[loop bench B] not gated: closing error {wi['closing_err_m']:.4f} "
+        f"m, loops {wi['loop_events']} (the JAX record's run B: "
+        f"{float(rec['loop.B.closing_err_m']):.1f} m, loops "
+        f"{rec['loop.B.loops'].tolist()}; the loop is lost at frames 36-45 "
+        f"in both packages)")
+    t0 = time.perf_counter()
+    tracked = tracked_loop(counters, dev, rec)
+    tracked["seconds"] = time.perf_counter() - t0
+    loop["tracked"] = tracked
+    e = tracked["E"]
+    par = e["parity"]
+    log(f"[loop tracked] {tracked['frames']} frames {tracked['size']} of "
+        f"the JAX package's loop test's circle, rendered in "
+        f"{tracked['render_s']:.1f} s; vocabulary of "
+        f"{tracked['vocabulary']['words']} words from "
+        f"{tracked['vocabulary']['descriptors']} descriptors; "
+        f"{tracked['seconds']:.1f} s in all")
+    log(f"[loop tracked E] the record's vocabulary and draws "
+        f"({e['draws_used']} used, {e['draws_missing']} missing): max "
+        f"distance from JAX {par['max_diff_m']:.5f} m (first frame > 1 cm "
+        f"{par['first_parting']}), keyframes equal {par['keyframes_equal']},"
+        f" BA equal {par['ba_equal']}, loops port {par['loops_port']} jax "
+        f"{par['loops_jax']}, relocalizations port {par['relocs_port']} jax "
+        f"{par['relocs_jax']}, lost port {par['lost_port']} jax "
+        f"{par['lost_jax']}; closing error port "
+        f"{par['closing_err_port_m']:.4f} m jax "
+        f"{par['closing_err_jax_m']:.4f} m; {e['fps']:.2f} frames/s; held "
+        f"{par['held']}")
+    for key in ["F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
+        f = tracked[key]
+        log(f"[loop tracked {key}] seed {f['seed']}, "
+            f"{'with' if 'gate' in f else 'without'} the closer: closing "
+            f"error {f['closing_err_m']:.4f} m, loops {f['loops']}, "
+            f"relocalizations {f['relocs']}, lost {f['lost']}, min inliers "
+            f"{f['min_inliers']}, {f['fps']:.2f} frames/s, launches "
+            f"{f['launches']}" + (f"; gate {f['gate']}" if "gate" in f
+                                  else ""))
+    if not par["held"]:
+        raise AssertionError(f"loop tracked E: not held to the JAX record: "
+                             f"{par}")
+    for key in ["E", "F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
+        missing = [k for k, v in tracked[key]["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"loop tracked {key}: kernels not launched:"
+                                 f" {missing}")
+    failed = [s for s in F_SEEDS if not tracked[f"F_seed{s}"]["gate"][
+        "passed"]]
+    if failed:
+        raise AssertionError(f"loop tracked F failed its gates at seeds "
+                             f"{failed}: {tracked}")
 
     phases.enter("direct")
     direct, seed_case, direct_stages = direct_phase(counters, dev, rec)
@@ -2813,6 +2927,9 @@ def main():
                  loop["recorded_without_closer"]["launches"],
              "loop_bench_recorded_with_closer":
                  loop["recorded_with_closer"]["launches"],
+             **{f"loop_tracked_{k}": loop["tracked"][k]["launches"]
+                for k in ["E", "F_without"]
+                + [f"F_seed{s}" for s in F_SEEDS]},
              "direct": direct["launches"],
              **{f"indirect_{s}": fig["launches"]
                 for s, fig in indirect.items()

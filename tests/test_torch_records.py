@@ -104,7 +104,8 @@ PARTS = os.path.join(REPO, ".bench_cache", "records")
 JAX_SOURCES = os.path.join(REPO, "trackingbench_slam_tpu")
 STRATEGIES = ("nn", "bf", "window", "bow", "projection")
 CLOSER = dict(min_score=0.015, min_inliers=40, exclude_recent=5)
-SEQUENCES = ("loop", "direct", "indirect", "mono")
+SEQUENCES = ("loop", "direct", "indirect", "mono", "loop_tracked",
+             "loop_online")
 
 
 # --------------------------------------------------------------- recording
@@ -360,6 +361,32 @@ def write_loop(parts_dir, log, n=96):
     return out
 
 
+def write_loop_tracked(parts_dir, log, n=parity.TRACKED_FRAMES):
+    """The tracked loop (utils/corridor.py tracked_loop_config and
+    tracked_loop_frames: the JAX package's own loop test's circle, at
+    parity.TRACKED_FRAMES frames) with
+    bench.py's LoopCloser (the test's settings too) on a vocabulary
+    trained from JAX's ORB of every 4th left image (the test's recipe),
+    `loop_tracked.closer`, and without it, `loop_tracked.without`: every
+    frame's row and F-RANSAC draws."""
+    cfg = corridor.tracked_loop_config()
+    jcfg = JConfig.from_json(cfg.to_json())
+    frames, gt = corridor.tracked_loop_frames(cfg, n)
+    out = {"loop_tracked.frame_sha": np.asarray([frame_sha(frames[0]),
+                                                 frame_sha(frames[-1])]),
+           "loop_tracked.gt": gt.astype(np.float32)}
+    with reference_semantics():
+        voc, n_desc = train_jax_vocabulary(
+            jcfg, frames, parity.VOC_EVERY["loop_tracked"])
+        out.update(voc_arrays("loop_tracked.voc", voc, n_desc))
+        log(f"loop_tracked: {n} frames, vocabulary from {n_desc} "
+            f"descriptors")
+        for run, closer in (("closer", True), ("without", False)):
+            out.update(run_loop_bench(jcfg, frames, gt, voc, closer,
+                                      f"loop_tracked.{run}", parts_dir, log))
+    return out
+
+
 def write_direct(parts_dir, log, n=24):
     cfg = corridor.direct_config()
     jcfg = JConfig.from_json(cfg.to_json())
@@ -445,8 +472,16 @@ def write_mono(parts_dir, log, n=28):
     return out
 
 
+def write_loop_online(parts_dir, log, n=None):
+    """tests/test_loop_online.py's two runs (tests/test_torch_loop_online.py
+    record_runs)."""
+    from tests.test_torch_loop_online import record_runs
+    return record_runs(log)
+
+
 WRITERS = dict(loop=write_loop, direct=write_direct, indirect=write_indirect,
-               mono=write_mono)
+               mono=write_mono, loop_tracked=write_loop_tracked,
+               loop_online=write_loop_online)
 
 
 def metadata() -> dict:
@@ -461,6 +496,10 @@ def metadata() -> dict:
 
 
 def write(parts_dir, only=None, frames=None):
+    """Writes the parts asked for (all, or `only`) that are not in
+    `parts_dir` yet, then assembles the record: each sequence from its
+    part, or, where no part was written, from the record as it is (a
+    sequence with neither is left out, and the tests that read it fail)."""
     os.makedirs(parts_dir, exist_ok=True)
 
     def log(msg):
@@ -477,18 +516,21 @@ def write(parts_dir, only=None, frames=None):
         out[f"{name}.seconds"] = np.float64(time.perf_counter() - t0)
         np.savez_compressed(path, **out)
         log(f"{name}: part written, {out[f'{name}.seconds']:.0f} s")
-    parts = [os.path.join(parts_dir, f"{s}.npz") for s in SEQUENCES]
-    if not all(os.path.exists(p) for p in parts):
-        log("record not assembled: parts missing")
-        return
+    old = parity.load_record() if os.path.exists(RECORD) else {}
     out = metadata()
-    for p in parts:
-        with np.load(p) as z:
-            out.update({k: z[k] for k in z.files})
+    for name in SEQUENCES:
+        path = os.path.join(parts_dir, f"{name}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                out.update({k: z[k] for k in z.files})
+            continue
+        kept = {k: v for k, v in old.items() if k.startswith(f"{name}.")}
+        if not kept:
+            log(f"{name}: no part and no record entries, left out")
+        out.update(kept)
     os.makedirs(os.path.dirname(RECORD), exist_ok=True)
     np.savez_compressed(RECORD, **out)
     log(f"record written: {os.path.getsize(RECORD)} bytes")
-
 
 
 # ------------------------------------------------------- carried-state steps
@@ -733,6 +775,104 @@ def carried_full_width(a: int, b: int, parts_dir: str = PARTS):
                                   seconds=time.perf_counter() - t0)),
                   flush=True)
 
+# ------------------------------------------------------------ stage counts
+
+@contextlib.contextmanager
+def jax_stage_counts(sink):
+    """While inside, the JAX StereoVO's steps also send parity.StageCounts'
+    counts to `sink` (a list of (name, value)), through jax.debug.callback
+    from the functions models/vo.py and matchers/matcher.py call: the same
+    counts the port's StageCounts takes, on JAX's own values (depths
+    accepted from the keyframe's right-image u, as the ring stores it)."""
+    from trackingbench_slam_tpu.models import map as j_map
+    from trackingbench_slam_tpu.ops import align as j_align
+    saved = dict(ransac=j_matcher.fundamental_ransac,
+                 anchored=j_align.anchored_align, orb=j_vo.extract_orb,
+                 free=j_map.free_slot_destinations, lk=j_vo.lk_pyramidal,
+                 insert=j_map.insert_keyframe, add=j_map.add_points)
+
+    def put(**kw):
+        names = list(kw)
+        jax.debug.callback(lambda *v: sink.extend(
+            (k, int(x)) for k, x in zip(names, v)), *kw.values())
+
+    def ransac(p1, p2, valid, key, *a, **kw):
+        inl, F = saved["ransac"](p1, p2, valid, key, *a, **kw)
+        put(lk_ok=valid.sum(), ransac_inliers=(inl & valid).sum())
+        return inl, F
+
+    def anchored(atlas, img, centers, xy, valid, *a, **kw):
+        put(linked_live=valid.sum())
+        return saved["anchored"](atlas, img, centers, xy, valid, *a, **kw)
+
+    def orb(f, cam, ecfg, pcfg, suppress_xy=None, suppress_valid=None):
+        out = saved["orb"](f, cam, ecfg, pcfg, suppress_xy=suppress_xy,
+                           suppress_valid=suppress_valid)
+        if suppress_valid is not None:
+            put(valid_before=suppress_valid.sum(),
+                free=(~suppress_valid).sum(), fresh=out.valid.sum(),
+                fresh_unsuppressed=saved["orb"](f, cam, ecfg,
+                                                pcfg).valid.sum())
+        return out
+
+    def free(free_rows, want):
+        dest = saved["free"](free_rows, want)
+        if free_rows.shape == want.shape:   # a frame's rows, not the map's
+            put(placed=(dest < free_rows.shape[0]).sum())
+        return dest
+
+    def lk(prev_pyr, cur_pyr, pts, valid, *a, **kw):
+        res = saved["lk"](prev_pyr, cur_pyr, pts, valid, *a, **kw)
+        conv = res.converged & valid
+        put(stereo_converged=conv.sum(), stereo_fb_ok=(
+            conv & res.fb_conv & (res.fb_d2 < 1.0)).sum())
+        return res
+
+    def insert(kfs, frame, frame_id, slot=None, kp_ur=None):
+        if kp_ur is not None:
+            put(depth_ok=(kp_ur >= 0).sum())
+        return saved["insert"](kfs, frame, frame_id, slot=slot, kp_ur=kp_ur)
+
+    def add(m, *a):
+        m2, slots = saved["add"](m, *a)
+        put(new_wanted=a[-1].sum(),
+            added=(a[-1] & (slots < m2.valid.shape[0])).sum())
+        return m2, slots
+
+    jax.clear_caches()
+    (j_matcher.fundamental_ransac, j_align.anchored_align, j_vo.extract_orb,
+     j_map.free_slot_destinations, j_vo.lk_pyramidal, j_map.insert_keyframe,
+     j_map.add_points) = (ransac, anchored, orb, free, lk, insert, add)
+    try:
+        yield
+    finally:
+        (j_matcher.fundamental_ransac, j_align.anchored_align,
+         j_vo.extract_orb, j_map.free_slot_destinations, j_vo.lk_pyramidal,
+         j_map.insert_keyframe, j_map.add_points) = saved.values()
+        jax.clear_caches()
+
+
+def jax_counts(n_frames: int):
+    """The loop bench's run A on the JAX package (as the record runs it)
+    over its first `n_frames` frames, printing parity.counts_line for each
+    frame and then the table as one JSON line."""
+    cfg = corridor.loop_bench_config()
+    jcfg = JConfig.from_json(cfg.to_json())
+    frames, _, _ = corridor.loop_frames(cfg, 96)
+    sink, table = [], []
+    with reference_semantics(), jax_stage_counts(sink):
+        vo = j_vo.StereoVO(jcfg)
+        for i in range(n_frames):
+            vo.track(*frames[i])
+            jax.effects_barrier()
+            row = dict(frame=i, **dict(sink), inliers=int(
+                vo.state.num_inliers), lost=bool(vo.lost))
+            sink.clear()
+            table.append(row)
+            print(parity.counts_line(row), f"inliers={row['inliers']}",
+                  flush=True)
+    print(json.dumps(table), flush=True)
+
 
 # ------------------------------------------------------------------ tests
 
@@ -783,34 +923,78 @@ def unfused_jax_steps():
         j_vo.track_and_keyframe_step, j_lm.track_keyframe_ba_step = saved
 
 
-@pytest.fixture(scope="module")
-def carried(one_thread):
-    """The loop bench's circle at 320x240 (its first N_CARRIED frames):
-    JAX's StereoVO on its TPU branches, and before every frame a port
-    StereoVO carrying JAX's state and counters, stepping on JAX's draws."""
-    cfg = loop_small_config()
+def carried_rows(cfg, seq) -> list:
+    """JAX's StereoVO on its TPU branches over `seq` (frames, or the
+    poses of the loop bench's frames), and before every frame a port
+    StereoVO carrying JAX's state and counters, stepping on JAX's draws
+    (carried_frame); at keyframes also the port's compound step on the
+    same draws. Call inside reference_semantics()."""
     jcfg = JConfig.from_json(cfg.to_json())
-    gt = loop_trajectory(96, radius=1.5)[:N_CARRIED]
-    frames, _, _ = corridor._render(cfg, gt, corridor.BASELINE)
+    frames = (seq if isinstance(seq, list) else
+              corridor._render(cfg, seq, corridor.BASELINE)[0])
     cpu = torch.device("cpu")
     cam = t_cam.CameraParams.from_config(cfg.camera, cpu)
     rows = []
-    with reference_semantics(), unfused_jax_steps():
-        jvo = j_vo.StereoVO(jcfg)
-        jvo.cfg_port = cfg
-        jvo.track(*frames[0])
-        for i in range(1, N_CARRIED):
-            before = vo_state_from_numpy(_host(jvo.state), cpu)
-            u = jax_draws(jvo.state.key, jvo.state.prev.kp_xy.shape[0])
-            rows.append(carried_frame(jvo, frames[i], cpu))
-            if rows[-1]["keyframe"][0]:
-                # the keyframe's compound step, given the same draws
-                step = (t_lm.track_keyframe_ba_step if rows[-1]["ba"][0]
-                        else t_vo.track_and_keyframe_step)
-                rows[-1]["compound_T_cw"] = step(
-                    before, *(torch.from_numpy(x) for x in frames[i]), cam,
-                    cfg, uniform=u).T_cw.tolist()
+    jvo = j_vo.StereoVO(jcfg)
+    jvo.cfg_port = cfg
+    jvo.track(*frames[0])
+    for i in range(1, len(frames)):
+        before = vo_state_from_numpy(_host(jvo.state), cpu)
+        u = jax_draws(jvo.state.key, jvo.state.prev.kp_xy.shape[0])
+        rows.append(carried_frame(jvo, frames[i], cpu))
+        if rows[-1]["keyframe"][0]:
+            # the keyframe's compound step, given the same draws
+            step = (t_lm.track_keyframe_ba_step if rows[-1]["ba"][0]
+                    else t_vo.track_and_keyframe_step)
+            rows[-1]["compound_T_cw"] = step(
+                before, *(torch.from_numpy(x) for x in frames[i]), cam,
+                cfg, uniform=u).T_cw.tolist()
     return rows
+
+
+N_CARRIED_TRACKED = 12   # keyframes at frames 2, 5, 8, 11; no BA
+
+
+@pytest.fixture(scope="module")
+def carried_runs(one_thread):
+    """Carried steps (carried_rows), in one reference context: the first
+    N_CARRIED frames of the loop bench's circle at 320x240 ("loop"), and
+    the first N_CARRIED_TRACKED frames of the tracked loop at its own
+    configuration ("loop_tracked")."""
+    tcfg = corridor.tracked_loop_config()
+    with reference_semantics(), unfused_jax_steps():
+        return {"loop": carried_rows(
+                    loop_small_config(),
+                    loop_trajectory(96, radius=1.5)[:N_CARRIED]),
+                "loop_tracked": carried_rows(tcfg, corridor._render(
+                    tcfg, loop_trajectory(parity.TRACKED_FRAMES, radius=1.0)[
+                        :N_CARRIED_TRACKED], corridor.TRACKED_BASELINE,
+                    width=8.0, u8=False)[0])}
+
+
+@pytest.fixture(scope="module")
+def carried(carried_runs):
+    """The loop bench's circle at 320x240 (its first N_CARRIED frames):
+    JAX's StereoVO on its TPU branches, and before every frame a port
+    StereoVO carrying JAX's state and counters, stepping on JAX's draws."""
+    return carried_runs["loop"]
+
+
+def held_carried(carried, n=N_CARRIED, ba=2, keyframes=4):
+    assert len(carried) == n - 1
+    assert sum(r["ba"][1] for r in carried) == ba
+    assert sum("compound_T_cw" in r for r in carried) == keyframes
+    for i, r in enumerate(carried, start=1):
+        assert r["dt_m"] < 1e-3 and r["drot"] < 1e-3, (i, r)
+        n_t, n_j = r["inliers"]
+        assert abs(n_t - n_j) <= max(2, 0.02 * n_j), (i, r)
+        for k in ("lost", "keyframe", "ba"):
+            assert r[k][0] == r[k][1], (i, k, r)
+        l_t, l_j = r["landmarks"]
+        assert abs(l_t - l_j) <= 0.02 * l_j, (i, r)
+        if r["keyframe"][0]:
+            # the compound step on the given draws is the tracker's step
+            assert r["compound_T_cw"] == r["port_T_cw"], i
 
 
 def test_carried_loop_bench_steps_match_reference(carried):
@@ -825,20 +1009,15 @@ def test_carried_loop_bench_steps_match_reference(carried):
       counters that the bounds above already hold far from their limits;
     - live landmarks within 2%: stereo matches and the cull gate points
       on their thresholds, as for the inliers."""
-    assert len(carried) == N_CARRIED - 1
-    assert sum(r["ba"][1] for r in carried) == 2
-    assert sum("compound_T_cw" in r for r in carried) == 4
-    for i, r in enumerate(carried, start=1):
-        assert r["dt_m"] < 1e-3 and r["drot"] < 1e-3, (i, r)
-        n_t, n_j = r["inliers"]
-        assert abs(n_t - n_j) <= max(2, 0.02 * n_j), (i, r)
-        for k in ("lost", "keyframe", "ba"):
-            assert r[k][0] == r[k][1], (i, k, r)
-        l_t, l_j = r["landmarks"]
-        assert abs(l_t - l_j) <= 0.02 * l_j, (i, r)
-        if r["keyframe"][0]:
-            # the compound step on the given draws is the driver's step
-            assert r["compound_T_cw"] == r["port_T_cw"], i
+    held_carried(carried)
+
+
+def test_carried_tracked_loop_steps_match_reference(carried_runs):
+    """The tracked loop's first frames at its own configuration, each port
+    step from JAX's state on JAX's draws, under the bounds of the loop
+    bench's (test_carried_loop_bench_steps_match_reference)."""
+    held_carried(carried_runs["loop_tracked"], N_CARRIED_TRACKED, ba=0,
+                 keyframes=4)
 
 
 @pytest.fixture(scope="module")
@@ -863,6 +1042,10 @@ def _counts(record, prefix):
 @pytest.mark.parametrize("prefix,frames,keys", [
     ("loop.A", 96, ("inliers", "lost", "keyframe", "ba", "landmarks")),
     ("loop.B", 96, ("inliers", "lost", "keyframe", "ba", "landmarks")),
+    ("loop_tracked.closer", parity.TRACKED_FRAMES,
+     ("inliers", "lost", "keyframe", "ba", "landmarks")),
+    ("loop_tracked.without", parity.TRACKED_FRAMES,
+     ("inliers", "lost", "keyframe", "ba", "landmarks")),
     ("direct", None, ("tracked", "promoted")),
     ("mono", None, ("inliers", "initialized", "landmarks")),
 ] + [(f"indirect.{s}", None, ("inliers",)) for s in STRATEGIES])
@@ -891,7 +1074,8 @@ def test_record_runs_have_their_rows(record, prefix, frames, keys):
         assert record[f"{prefix}.ransac_frame"].tolist() == list(range(1, n))
 
 
-@pytest.mark.parametrize("prefix", ["loop.voc", "indirect.voc"])
+@pytest.mark.parametrize("prefix", ["loop.voc", "indirect.voc",
+                                    "loop_tracked.voc"])
 def test_record_vocabulary_round_trip(record, prefix):
     voc = parity.record_vocabulary(record, prefix, torch.device("cpu"))
     back = vocabulary_to_numpy(voc)
@@ -906,6 +1090,12 @@ def _render_one(name, cfg, index, n):
     """Frame `index` of sequence `name` rendered alone, as its generator
     renders it inside the whole sequence."""
     base = corridor.BASELINE
+    if name == "loop_tracked":
+        scene = CorridorScene(cfg.camera, width=8.0, height=5.0)
+        T = loop_trajectory(n, radius=1.0)[index]
+        stereo = index == 0 or (index + 1) % cfg.keyframe_every == 0
+        return (scene.stereo_pair(T, corridor.TRACKED_BASELINE) if stereo
+                else (scene.render(T), None))
     if name == "loop":
         scene = CorridorScene(cfg.camera, width=10.0, height=5.0)
         T = loop_trajectory(n, radius=1.5)[index]
@@ -926,22 +1116,46 @@ def _render_one(name, cfg, index, n):
 
 
 CONFIGS = dict(loop=corridor.loop_bench_config,
+               loop_tracked=corridor.tracked_loop_config,
                direct=corridor.direct_config, indirect=euroc_stereo_config,
                mono=corridor.mono_config)
 
 
-@pytest.mark.parametrize("name", SEQUENCES)
+@pytest.mark.parametrize("name", SEQUENCES[:-1])
 def test_record_frames_render_again(record, name):
     """Frame 0 and the last frame of each sequence, rendered again alone
     at the record's size, hash to the record's sha256; so do the
     trajectories' ground truth."""
     cfg = CONFIGS[name]()
-    prefix = "loop.A" if name == "loop" else (
-        "indirect.nn" if name == "indirect" else name)
+    prefix = {"loop": "loop.A", "indirect": "indirect.nn",
+              "loop_tracked": "loop_tracked.closer"}.get(name, name)
     n = _counts(record, prefix)
     shas = record[f"{name}.frame_sha"].tolist()
     for index, want in zip((0, n - 1), shas):
         assert frame_sha(_render_one(name, cfg, index, n)) == want, index
+
+
+def test_record_tracked_loop_is_tracked_and_closed(record):
+    """The JAX package tracks the tracked loop without flagging a frame
+    lost, with the closer and without; with it, it closes a loop and ends
+    within bench.py's 5 cm of the start, below the closer-less run; the
+    record's ground truth is that circle's, and its frames start as the
+    JAX loop test's (part loop_online)."""
+    p = "loop_tracked.closer"
+    assert not record[f"{p}.lost"].any()
+    assert not record["loop_tracked.without.lost"].any()
+    assert len(record[f"{p}.loops"]) >= 1
+    assert len(record[f"{p}.relocs"]) == 0
+    assert record[f"{p}.closing_err_m"] < parity.CLOSING_TOL_M
+    assert record[f"{p}.closing_err_m"] < record[
+        "loop_tracked.without.closing_err_m"]
+    np.testing.assert_array_equal(
+        record["loop_tracked.gt"],
+        loop_trajectory(parity.TRACKED_FRAMES, radius=1.0
+                        ).astype(np.float32))
+    # the same first frame as the loop test's 48-frame circle
+    assert record["loop_tracked.frame_sha"][0] == record[
+        "loop_online.circle.frame_sha"][0]
 
 
 def test_draws_selecting_reproduces_jax_hypotheses():
@@ -1101,8 +1315,11 @@ def main(argv):
     ap.add_argument("--part", choices=SEQUENCES)
     ap.add_argument("--parts", default=PARTS)
     ap.add_argument("--frames", type=int, default=None,
-                    help="cut the part's sequence to this many frames")
+                    help="the part's sequence at this many frames")
     ap.add_argument("--carried", default=None, metavar="A:B")
+    ap.add_argument("--counts", type=int, default=None, metavar="N",
+                    help="JAX's stage counts over the loop bench's first "
+                         "N frames (run A)")
     args = ap.parse_args(argv)
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
     if args.write:
@@ -1110,6 +1327,8 @@ def main(argv):
     if args.carried:
         a, b = (int(x) for x in args.carried.split(":"))
         carried_full_width(a, b)
+    if args.counts:
+        jax_counts(args.counts)
 
 
 if __name__ == "__main__":

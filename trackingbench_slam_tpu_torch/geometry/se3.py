@@ -53,6 +53,14 @@ def _sinc_terms(theta2: torch.Tensor):
     return a, b, c
 
 
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) axis-angle -> (..., 3, 3) rotation."""
+    a, b, _ = (s[..., None] for s in _sinc_terms(_dot(phi, phi)))
+    K = hat(phi)
+    return (torch.eye(3, dtype=phi.dtype, device=phi.device) + a * K
+            + b * small_matmul(K, K))
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     w = vee(R - R.transpose(-1, -2)) * 0.5
     w2 = _dot(w, w)
@@ -114,6 +122,10 @@ def log(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([small_matmul(Vinv, t[..., None])[..., 0], phi], -1)
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4, 4) rigid transforms."""
     Rt = T[..., :3, :3].transpose(-1, -2)
@@ -131,6 +143,11 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ T[:3, :3].T + T[:3, 3]
 
 
+def rotate(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Rotation-only action of (4, 4) T on (..., 3) direction vectors."""
+    return vecs @ T[:3, :3].T
+
+
 def normalize(T: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize the rotation block of (..., 4, 4) poses with two
     Newton polar steps, R <- R (3I - R^T R) / 2."""
@@ -139,4 +156,15 @@ def normalize(T: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         RtR = small_matmul(R.transpose(-1, -2), R)
         R = small_matmul(R, 3.0 * I3 - RtR) * 0.5
+    return from_rt(R, T[..., :3, 3])
+
+
+def normalize_svd(T: torch.Tensor) -> torch.Tensor:
+    """The exact polar projection of the rotation block of (..., 4, 4)
+    poses (SVD, the last singular direction's sign set so that det = +1),
+    for rotations far from orthonormal."""
+    u, _, vt = torch.linalg.svd(T[..., :3, :3])
+    d = torch.sign(torch.linalg.det(u @ vt))
+    ones = torch.ones_like(d)
+    R = (u * torch.stack([ones, ones, d], -1)[..., None, :]) @ vt
     return from_rt(R, T[..., :3, 3])

@@ -163,6 +163,30 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
     return top * (1 - wy) + bot * wy
 
 
+def image_gradients(img: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradients (gx, gy) of (H, W), 0.5 (I[x+1] -
+    I[x-1]), zero on the border rows and columns."""
+    gx = 0.5 * (torch.roll(img, -1, 1) - torch.roll(img, 1, 1))
+    gy = 0.5 * (torch.roll(img, -1, 0) - torch.roll(img, 1, 0))
+    gx[:, 0] = 0
+    gx[:, -1] = 0
+    gy[0, :] = 0
+    gy[-1, :] = 0
+    return gx, gy
+
+
+def extract_patches(img: torch.Tensor, centers: torch.Tensor,
+                    half: int) -> torch.Tensor:
+    """(N, P, P) patches, P = 2 half + 1, around (N, 2) float (x, y)
+    centers, bilinearly sampled (zero outside the image)."""
+    offs = torch.arange(2 * half + 1, dtype=img.dtype,
+                        device=img.device) - half
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    grid = torch.stack([ox, oy], -1)
+    return bilinear_sample(img, centers[:, None, None, :] + grid[None])
+
+
 def clahe_like(img: torch.Tensor, clip: float = 3.0,
                grid: int = 8) -> torch.Tensor:
     """Global contrast normalization (mean/std to mid-gray), the cheap

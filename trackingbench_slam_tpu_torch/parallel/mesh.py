@@ -113,6 +113,25 @@ def make_mesh(lm: int | None = None, dp: int = 1) -> RankMesh:
     return mesh_of_grid([range(d * lm, (d + 1) * lm) for d in range(dp)])
 
 
+def replicated(mesh: RankMesh, x):
+    """This rank's share of an array replicated over `mesh`: all of it
+    (the JAX package's NamedSharding(mesh, P()))."""
+    return x
+
+
+def lm_sharded(mesh: RankMesh, x, *, axis: int = 0):
+    """This rank's share of `x` split over the mesh's 'lm' axis along
+    `axis` (the JAX package's NamedSharding(mesh, P(..., "lm"))): the
+    lm_index-th of mesh.lm equal blocks, the same for every row. The axis
+    must divide evenly, as a JAX sharding requires."""
+    n = x.shape[axis]
+    if n % mesh.lm:
+        raise ValueError(f"axis {axis} of {n} does not split into "
+                         f"{mesh.lm} equal blocks")
+    k = n // mesh.lm
+    return x.narrow(axis, mesh.lm_index * k, k)
+
+
 def lm_mesh(lm: int, dp: int = 1) -> RankMesh:
     """The mesh a pipeline configured with mesh.lm = lm solves on; raises,
     naming mesh.lm, when torch.distributed does not hold that many ranks."""

@@ -14,14 +14,31 @@ top-8 picks the same rows, and `RecordedDraws` installs them as the
 port's draw functions (matchers/matcher.py `draw_uniform` for the track
 step, ops/ransac.py `draw_uniform` for the mono bootstrap), so that a port
 run takes JAX's RANSAC hypotheses. `compare_stereo` and `compare_poses`
-report where a port run parts from the record.
+report where a port run parts from the record. `StageCounts` counts, per
+frame, what each stage of the track and keyframe steps kept.
 
     python -m trackingbench_slam_tpu_torch.parity [--closer] [--free]
-        [--frames N] [--cpu]
+        [--frames N] [--counts] [--cpu]
 
 runs the loop bench on the card (run C, or D with --closer: the record's
 vocabulary and run B's draws) and prints a line a frame, the record's
-columns beside the port's, then the report as one JSON line.
+columns beside the port's (with --counts, the stage counts after it), then
+the report as one JSON line.
+
+    python -m trackingbench_slam_tpu_torch.parity --loop-tracked
+        [--seeds 8] [--tracked-frames N | --circle N:EASE
+        [--stop-at-fail]] [--cpu]
+
+is the tracked loop's seed sweep (the JAX package's own loop test's
+configuration and circle at TRACKED_FRAMES frames, or N, utils/corridor.py
+`tracked_loop_config`, which both packages track without losing a frame):
+for each RANSAC generator seed the loop without and with bench.py's
+LoopCloser (on a vocabulary trained from the port's ORB), a line per seed
+(loops, relocalizations, lost frames, both closing errors, whether it
+passes `tracked_loop_gate`), then a JSON line; it exits 1 if a seed
+fails. `--circle N:EASE` sweeps the loop bench's circle at N frames and
+that speed profile instead (`--stop-at-fail` ends at the first failing
+seed).
 """
 
 from __future__ import annotations
@@ -37,6 +54,8 @@ import numpy as np
 import torch
 
 from trackingbench_slam_tpu_torch.matchers import matcher as matcher_mod
+from trackingbench_slam_tpu_torch.models import map as map_mod
+from trackingbench_slam_tpu_torch.models import vo as vo_mod
 from trackingbench_slam_tpu_torch.ops import ransac as ransac_mod
 from trackingbench_slam_tpu_torch.utils.convert import vocabulary_from_numpy
 
@@ -50,6 +69,15 @@ POSITION_TOL_M = 0.01          # a frame "parts" beyond 1 cm
 WELL_POSED_INLIERS = 50
 SITES = {"track": 0, "bootstrap": 1}
 _draw = ransac_mod.draw_uniform   # the generator's draws
+CLOSING_TOL_M = 0.05           # bench.py's closing-error gate
+# vocabulary training: every this many left images of the loop bench's
+# frames (bench.py's recipe) and of the tracked loop's (its test's)
+VOC_EVERY = {"loop": 12, "loop_tracked": 4}
+# frames of the tracked loop's circle: the JAX loop test's 48 dip to 21
+# pose inliers at frame 29 and fail the gate at 2 RANSAC seeds in 8, 96
+# close 2 cm above the closer-less run at every seed; 72 keep >= 57
+# inliers and pass at every seed (PERF.md)
+TRACKED_FRAMES = 72
 
 
 def load_record(path: str = RECORD) -> dict:
@@ -257,12 +285,14 @@ class StereoRows:
         return out
 
 
-def loop_bench_tracker(cfg, device, voc=None):
-    """StereoVO at `cfg`, with bench.py's LoopCloser when `voc` is
-    given."""
+def loop_bench_tracker(cfg, device, voc=None, seed=None):
+    """StereoVO at `cfg`, with bench.py's LoopCloser when `voc` is given,
+    its RANSAC generator seeded `seed` when given (0 otherwise)."""
     from trackingbench_slam_tpu_torch.models.loop_closer import LoopCloser
     from trackingbench_slam_tpu_torch.models.vo import StereoVO
     vo = StereoVO(cfg, device=device)
+    if seed is not None:
+        vo.generator.manual_seed(seed)
     if voc is not None:
         vo.loop_closer = LoopCloser(voc, vo.cam, min_score=0.015,
                                     min_inliers=40, exclude_recent=5)
@@ -270,22 +300,243 @@ def loop_bench_tracker(cfg, device, voc=None):
 
 
 def run_loop_bench(cfg, frames, device, voc=None, draws=None,
-                   on_frame=None) -> tuple:
+                   on_frame=None, seed=None, counts=None) -> tuple:
     """The loop bench on the port, a row a frame: StereoVO at `cfg`, with
     bench.py's LoopCloser when `voc` is given, on `draws`
-    (RecordedDraws) when given. Returns (rows, vo)."""
-    vo = loop_bench_tracker(cfg, device, voc)
+    (RecordedDraws) when given, else on the generator seeded `seed`;
+    `counts` (StageCounts) counts its stages. Returns (rows, vo)."""
+    vo = loop_bench_tracker(cfg, device, voc, seed)
     rows = StereoRows()
-    with draws.installed() if draws else contextlib.nullcontext():
+    with contextlib.ExitStack() as stack:
+        if draws:
+            stack.enter_context(draws.installed())
+        if counts:
+            stack.enter_context(counts.installed())
         for i, f in enumerate(frames):
             if draws:
                 draws.at = i
+            if counts:
+                counts.at = i
             rows.before(vo)
             vo.track(*f)
             rows.after(vo)
             if on_frame:
                 on_frame(i, rows.row(i))
     return rows.arrays(vo), vo
+
+
+class StageCounts:
+    """What each stage of a StereoVO run kept, frame by frame: per track
+    step the LK matches that converged inside the image (`lk_ok`) and the
+    F-RANSAC inliers among them; per keyframe step the valid feature rows
+    it starts from (`valid_before`), those linked to a live landmark
+    (`linked_live`, the anchored refinement's points) and the free rows,
+    the ORB keypoints the frame gives without suppression
+    (`fresh_unsuppressed`, an extra extraction made for the count), the
+    fresh ones left after AddPoints suppression (`fresh`) and those placed
+    in free rows (`placed`), the stereo LK matches that converged
+    (`stereo_converged`) and also passed the forward-backward check
+    (`stereo_fb_ok`), the depths accepted (`depth_ok`), the rows
+    wanting a landmark (depth accepted and unlinked after the projection
+    search, `new_wanted`) and the landmarks added (`added`). The counts
+    are read through the functions models/vo.py, models/map.py and
+    matchers/matcher.py call, wrapped while `installed()`; the steps are
+    unchanged and no count is read to the host before `table()`. Set `at`
+    to the frame before each `track` call."""
+
+    TRACK = ("lk_ok", "ransac_inliers")
+    KEYFRAME = ("valid_before", "linked_live", "free", "fresh_unsuppressed",
+                "fresh", "placed", "stereo_converged", "stereo_fb_ok",
+                "depth_ok", "new_wanted", "added")
+
+    def __init__(self):
+        self.at = None
+        self.counts: dict = {}
+        self._fresh_pending = False
+
+    def _put(self, **kw):
+        self.counts.setdefault(self.at, {}).update(kw)
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = dict(ransac=matcher_mod.fundamental_ransac,
+                     anchored=vo_mod.anchored_align,
+                     add_fresh=vo_mod.add_fresh_keypoints,
+                     orb=vo_mod.extract_orb, lk=vo_mod.lk_pyramidal,
+                     map_kf=vo_mod.map_keyframe, add=map_mod.add_points)
+
+        def ransac(p1, p2, valid, *a, **kw):
+            inl, F = saved["ransac"](p1, p2, valid, *a, **kw)
+            self._put(lk_ok=valid.sum(), ransac_inliers=(inl & valid).sum())
+            return inl, F
+
+        def anchored(atlas, img, centers, xy, valid, *a, **kw):
+            self._put(linked_live=valid.sum())
+            return saved["anchored"](atlas, img, centers, xy, valid, *a,
+                                     **kw)
+
+        def add_fresh(f, cam, cfg):
+            self._fresh_pending = True
+            try:
+                out = saved["add_fresh"](f, cam, cfg)
+            finally:
+                self._fresh_pending = False
+            self._put(valid_before=f.valid.sum(), free=(~f.valid).sum(),
+                      placed=out.valid.sum() - f.valid.sum())
+            return out
+
+        def orb(f, cam, ecfg, pcfg, **kw):
+            out = saved["orb"](f, cam, ecfg, pcfg, **kw)
+            if self._fresh_pending:       # not a relocalization's call
+                # and once more without the suppression, for the count
+                self._put(fresh=out.valid.sum(), fresh_unsuppressed=saved[
+                    "orb"](f, cam, ecfg, pcfg).valid.sum())
+            return out
+
+        def lk(prev_pyr, cur_pyr, pts, valid, *a, **kw):
+            res = saved["lk"](prev_pyr, cur_pyr, pts, valid, *a, **kw)
+            conv = res.converged & valid
+            self._put(stereo_converged=conv.sum(), stereo_fb_ok=(
+                conv & res.fb_conv & (res.fb_d2 < 1.0)).sum())
+            return res
+
+        def map_kf(state, f, p_w, depth_ok, *a, **kw):
+            self._put(depth_ok=depth_ok.sum())
+            return saved["map_kf"](state, f, p_w, depth_ok, *a, **kw)
+
+        def add(m, *a):
+            want = a[-1]
+            m2, slots = saved["add"](m, *a)
+            self._put(new_wanted=want.sum(),
+                      added=(want & (slots < m2.capacity)).sum())
+            return m2, slots
+
+        (matcher_mod.fundamental_ransac, vo_mod.anchored_align,
+         vo_mod.add_fresh_keypoints, vo_mod.extract_orb,
+         vo_mod.lk_pyramidal, vo_mod.map_keyframe,
+         map_mod.add_points) = (ransac, anchored, add_fresh, orb, lk,
+                                map_kf, add)
+        try:
+            yield self
+        finally:
+            (matcher_mod.fundamental_ransac, vo_mod.anchored_align,
+             vo_mod.add_fresh_keypoints, vo_mod.extract_orb,
+             vo_mod.lk_pyramidal, vo_mod.map_keyframe,
+             map_mod.add_points) = saved.values()
+
+    def table(self) -> list:
+        """[{frame, and each count taken at that frame}] on the host, by
+        frame."""
+        return [dict(frame=int(i), **{k: int(v) for k, v in c.items()})
+                for i, c in sorted(self.counts.items())]
+
+
+def counts_line(row: dict) -> str:
+    """One frame's stage counts; a keyframe's after its track counts."""
+    cols = [f"{k}={row[k]}" for k in StageCounts.TRACK + StageCounts.KEYFRAME
+            if k in row]
+    return f"f{row['frame']:3d} counts " + " ".join(cols)
+
+
+def tracked_loop_gate(with_closer: dict, without: dict) -> dict:
+    """The tracked loop's gate on one seed (each dict: closing_err_m,
+    loops, lost frames): no frame flagged lost in either run, >= 1 loop
+    closed, a closing error < CLOSING_TOL_M and below the closer-less
+    run's."""
+    checks = dict(
+        no_lost=not with_closer["lost"] and not without["lost"],
+        loop_closed=len(with_closer["loops"]) >= 1,
+        closes=with_closer["closing_err_m"] < CLOSING_TOL_M,
+        below_closerless=(with_closer["closing_err_m"]
+                          < without["closing_err_m"]))
+    return dict(checks, passed=all(checks.values()))
+
+
+def compare_tracked(rec: dict, prefix: str, rows: dict) -> dict:
+    """A port run of the tracked loop against the record's run `prefix`,
+    held at every frame: positions within POSITION_TOL_M, the same
+    keyframe, BA, loop and relocalization frames, no frame lost."""
+    pose = compare_poses(rows["T_cw"], rec[f"{prefix}.T_cw"])
+    n = pose["frames"]
+    eq = {k: bool(np.array_equal(np.asarray(rows[k][:n], bool),
+                                 rec[f"{prefix}.{k}"][:n].astype(bool)))
+          for k in ("keyframe", "ba")}
+    out = dict(
+        frames=n, first_parting=pose["first_parting"],
+        max_diff_m=pose["max_diff_m"], keyframes_equal=eq["keyframe"],
+        ba_equal=eq["ba"],
+        lost_port=np.flatnonzero(np.asarray(rows["lost"], bool)).tolist(),
+        lost_jax=np.flatnonzero(rec[f"{prefix}.lost"]).tolist(),
+        loops_port=[int(x) for x in rows.get("loops", [])],
+        loops_jax=rec[f"{prefix}.loops"].tolist(),
+        relocs_port=[int(x) for x in rows.get("relocs", [])],
+        relocs_jax=rec[f"{prefix}.relocs"].tolist(),
+        closing_err_jax_m=float(rec[f"{prefix}.closing_err_m"]))
+    if "poses" in rows:
+        from trackingbench_slam_tpu_torch.utils.corridor import closing_error
+        gt = rec[f"{prefix.split('.')[0]}.gt"].astype(np.float64)
+        out["closing_err_port_m"] = closing_error(rows["poses"], gt)
+    out["held"] = bool(
+        n == len(rec[f"{prefix}.T_cw"]) and pose["max_diff_m"]
+        <= POSITION_TOL_M and eq["keyframe"] and eq["ba"]
+        and out["loops_port"] == out["loops_jax"]
+        and out["relocs_port"] == out["relocs_jax"]
+        and not out["lost_port"] and not out["lost_jax"])
+    return out
+
+
+def sweep_frames(circle=None, n=TRACKED_FRAMES):
+    """(cfg, frames, gt, vocabulary stride) of the tracked loop
+    (utils/corridor.py tracked_loop_config, tracked_loop_frames at `n`
+    frames), or with `circle` = (n, ease) of the loop bench's circle at n
+    frames and that speed profile."""
+    from trackingbench_slam_tpu_torch.utils import corridor
+    if circle is None:
+        cfg = corridor.tracked_loop_config()
+        frames, gt = corridor.tracked_loop_frames(cfg, n)
+        return cfg, frames, gt, VOC_EVERY["loop_tracked"]
+    cfg = corridor.loop_bench_config()
+    frames, gt, _ = corridor.loop_frames(cfg, circle[0], ease=circle[1])
+    return cfg, frames, gt, VOC_EVERY["loop"]
+
+
+def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None,
+               stop_at_fail=False) -> list:
+    """The loop without and with bench.py's LoopCloser (on `voc`) for
+    each RANSAC generator seed: a dict per seed with both runs' closing
+    errors, loops, relocalizations and lost frames, and the gate's
+    verdict (tracked_loop_gate); with `stop_at_fail`, up to the first
+    seed that fails."""
+    from trackingbench_slam_tpu_torch.utils.corridor import closing_error
+    out = []
+    for seed in seeds:
+        runs = {}
+        for key, run_voc in (("without", None), ("with", voc)):
+            rows, vo = run_loop_bench(cfg, frames, device, run_voc,
+                                      seed=seed)
+            runs[key] = dict(
+                closing_err_m=closing_error(rows["poses"], gt),
+                loops=rows["loops"], relocs=rows["relocs"],
+                lost=np.flatnonzero(rows["lost"]).tolist(),
+                min_inliers=int(rows["inliers"][1:].min()))
+        row = dict(seed=seed, without=runs["without"], closer=runs["with"],
+                   **tracked_loop_gate(runs["with"], runs["without"]))
+        if log:
+            log(sweep_line(row))
+        out.append(row)
+        if stop_at_fail and not row["passed"]:
+            break
+    return out
+
+
+def sweep_line(r: dict) -> str:
+    w, c = r["without"], r["closer"]
+    return (f"seed {r['seed']}: closer loops {c['loops']} relocs "
+            f"{c['relocs']} lost {c['lost']} closing error "
+            f"{c['closing_err_m']:.4f} m (min inliers {c['min_inliers']}); "
+            f"without loops lost {w['lost']} closing error "
+            f"{w['closing_err_m']:.4f} m (min inliers {w['min_inliers']}); "
+            f"{'pass' if r['passed'] else 'FAIL'}")
 
 
 def frame_line(i: int, row: dict, rec: dict, prefix: str, gt) -> str:
@@ -299,6 +550,27 @@ def frame_line(i: int, row: dict, rec: dict, prefix: str, gt) -> str:
             f" | jax {cols(rec[f'{prefix}.T_cw'][i], rec[f'{prefix}.inliers'][i], rec[f'{prefix}.lost'][i])}")
 
 
+def sweep_main(args, device) -> int:
+    """--loop-tracked: the seed sweep, a line a seed, then the JSON."""
+    from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
+    circle = None
+    if args.circle:
+        n, ease = args.circle.split(":")
+        circle = int(n), float(ease)
+    cfg, frames, gt, every = sweep_frames(circle, args.tracked_frames)
+    voc, n_desc = train_vocabulary(cfg, frames, device, every=every)
+    name = (f"the loop bench's circle at {circle[0]} frames, ease "
+            f"{circle[1]}" if circle else "the tracked loop")
+    print(f"{name}: {len(frames)} frames {cfg.camera.width}x"
+          f"{cfg.camera.height}; vocabulary of {voc.num_words} words from "
+          f"{n_desc} descriptors", flush=True)
+    rows = seed_sweep(cfg, frames, gt, device, voc, range(args.seeds),
+                      lambda m: print(m, flush=True), args.stop_at_fail)
+    print(json.dumps(dict(loop=name, frames=len(frames), seeds=rows,
+                          all_passed=all(r["passed"] for r in rows))))
+    return 0 if all(r["passed"] for r in rows) else 1
+
+
 def main(argv=None) -> int:
     from trackingbench_slam_tpu_torch.utils import corridor
     from trackingbench_slam_tpu_torch.utils.device import resolve_device
@@ -309,10 +581,24 @@ def main(argv=None) -> int:
     ap.add_argument("--free", action="store_true",
                     help="the port's own draws instead of the record's")
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--counts", action="store_true",
+                    help="count each stage's survivors (StageCounts)")
+    ap.add_argument("--loop-tracked", action="store_true",
+                    help="the tracked loop's seed sweep")
+    ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--circle", default=None, metavar="N:EASE",
+                    help="sweep the loop bench's circle at N frames and "
+                         "this speed profile instead")
+    ap.add_argument("--tracked-frames", type=int, default=TRACKED_FRAMES,
+                    help="the tracked loop's circle at this many frames")
+    ap.add_argument("--stop-at-fail", action="store_true",
+                    help="end the sweep at the first seed that fails")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--record", default=RECORD)
     args = ap.parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
+    if args.loop_tracked:
+        return sweep_main(args, device)
     rec = load_record(args.record)
     prefix = "loop.B" if args.closer else "loop.A"
     cfg = corridor.loop_bench_config()
@@ -321,13 +607,19 @@ def main(argv=None) -> int:
     frames = frames[:args.frames or n]
     voc = record_vocabulary(rec, "loop.voc", device) if args.closer else None
     draws = None if args.free else RecordedDraws(rec, prefix)
+    counts = StageCounts() if args.counts else None
     rows, _ = run_loop_bench(
         cfg, frames, device, voc, draws,
-        lambda i, r: print(frame_line(i, r, rec, prefix, gt), flush=True))
+        lambda i, r: print(frame_line(i, r, rec, prefix, gt), flush=True),
+        counts=counts)
     report = compare_stereo(rec, prefix, rows)
     report.update(run="D" if args.closer else "C", free=args.free,
                   draws_used=draws.used if draws else 0,
                   draws_missing=draws.missing if draws else 0)
+    if counts:
+        report["counts"] = counts.table()
+        for row in report["counts"]:
+            print(counts_line(row), flush=True)
     print(json.dumps(report))
     return 0
 

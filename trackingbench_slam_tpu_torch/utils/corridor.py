@@ -13,6 +13,10 @@ keyframes. `direct_config()` / `direct_frames()`, `mono_config()` /
 `mono_frames()` and `indirect_frames()` (for utils/config.py
 `euroc_stereo_config()`) are the other three trackers' configurations and
 sequences, the JAX package's own gates at these widths.
+`tracked_loop_config()` / `tracked_loop_frames()` are the JAX package's
+own loop test's configuration and circle (at 72 frames, parity.py
+TRACKED_FRAMES, both packages track it without losing a frame; the loop
+bench's circle loses frames in both).
 """
 
 from __future__ import annotations
@@ -61,15 +65,20 @@ def _u8(a):
     return np.clip(a, 0, 255).astype(np.uint8)
 
 
-def _render(cfg: PipelineConfig, gt: np.ndarray, baseline: float):
-    scene = CorridorScene(cfg.camera, width=10.0, height=5.0)
+def _render(cfg: PipelineConfig, gt: np.ndarray, baseline: float,
+            width: float = 10.0, u8: bool = True):
+    """Right images on frame 0 and on every keyframe, in a CorridorScene
+    `width` m wide and 5 m high; uint8 with `u8`, else float32 as
+    rendered."""
+    scene = CorridorScene(cfg.camera, width=width, height=5.0)
+    out = _u8 if u8 else (lambda a: a)
     frames = []
     for i, T in enumerate(gt):
         if i == 0 or (i + 1) % cfg.keyframe_every == 0:
             left, right = scene.stereo_pair(T, baseline)
-            frames.append((_u8(left), _u8(right)))
+            frames.append((out(left), out(right)))
         else:
-            frames.append((_u8(scene.render(T)), None))
+            frames.append((out(scene.render(T)), None))
     return frames, gt, scene
 
 
@@ -81,9 +90,40 @@ def corridor_frames(cfg: PipelineConfig, n: int, baseline: float = BASELINE):
 
 
 def loop_frames(cfg: PipelineConfig, n: int = 96, radius: float = 1.5,
-                baseline: float = BASELINE):
-    """The loop bench's closed circle, as corridor_frames."""
-    return _render(cfg, loop_trajectory(n, radius=radius), baseline)
+                baseline: float = BASELINE, ease: float = 0.75):
+    """The loop bench's closed circle, as corridor_frames; `ease` is
+    loop_trajectory's speed profile (0.75: the turn rate ramps from a
+    quarter of its mean to 1.75 times it at mid-loop; 0: constant)."""
+    return _render(cfg, loop_trajectory(n, radius=radius, ease=ease),
+                   baseline)
+
+
+TRACKED_BASELINE = 0.25
+
+
+def tracked_loop_config() -> PipelineConfig:
+    """The JAX package's own loop test's configuration
+    (tests/test_loop_online.py:22-37 with a keyframe every 3rd frame):
+    512x384, fx 400, a 0.25 m baseline, 3 levels x0.8, 600 ORB features,
+    16 keyframes, 8192 landmarks, 3 LK tracking levels, no windowed BA."""
+    cam = CameraConfig(width=512, height=384, fx=400.0, fy=400.0, cx=256.0,
+                       cy=192.0, bf=400.0 * TRACKED_BASELINE)
+    return PipelineConfig(
+        camera=cam, pyramid=PyramidConfig(num_levels=3, scale_factor=0.8),
+        extractor=ExtractorConfig(num_features=600, min_threshold=10,
+                                  cell_size=24),
+        map=MapConfig(max_keyframes=16, max_points=8192), keyframe_every=3,
+        local_ba_every=0, lk_track_levels=3)
+
+
+def tracked_loop_frames(cfg: PipelineConfig, n: int = 48):
+    """That test's closed circle (tests/test_loop_online.py:60-80, 48
+    frames) at n frames: a 1 m circle in an 8 m wide corridor, float32
+    images as rendered, a stereo pair on frame 0 and on keyframes. Returns
+    (frames, gt)."""
+    frames, gt, _ = _render(cfg, loop_trajectory(n, radius=1.0),
+                            TRACKED_BASELINE, width=8.0, u8=False)
+    return frames, gt
 
 
 def direct_config() -> PipelineConfig:
