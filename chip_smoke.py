@@ -67,10 +67,13 @@ runs before the first torch.profiler session of the process (PHASES):
      frame; the loop bench's circle at 96-192 frames does not), its frames
      hashing to the record's: run E with the closer on the record's
      vocabulary and draws, held to the record at every frame (within 1 cm,
-     keyframe, BA, loop and relocalization frames equal, no frame lost),
-     and run F on the port's own draws and the card's vocabulary, with the
-     closer at RANSAC seeds 0 and 1 and without it at seed 0: each closer
-     run loses no frame, closes >= 1 loop and ends < 0.05 m from the start,
+     keyframe, BA, loop and relocalization frames equal, no frame lost);
+     run E48 the same on the loop test's own 48 frames, held as C and D
+     are (its keyframe 29 rests on 21 inliers, where F-RANSAC's inlier set
+     turns on rounding); and run F on the port's own draws and the card's
+     vocabulary, with the closer at RANSAC seeds 0 and 1 and without it at
+     seed 0: each closer run loses no frame, closes the revisit loop (in
+     the last 10 frames) and ends < 0.05 m from the start and >= 5 mm
      below the closer-less run; every counter moves in every run;
   10. direct: DirectVO at bench.py's camera and features on the direct
      pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
@@ -832,48 +835,60 @@ def tracked_loop(counters, device, rec):
     package's own loop test's circle at parity.TRACKED_FRAMES frames,
     which both packages track without losing a frame): run E with the
     closer on the record's vocabulary and draws, held to the record at
-    every frame (parity.compare_tracked); run F on the port's own draws
-    and a vocabulary trained here, with the closer at RANSAC seeds F_SEEDS
-    and without it at the first, each closer run gated by
+    every frame (parity.compare_stereo, held_every_frame); run E48 the
+    same on the loop test's own 48 frames (part loop_tracked48), held
+    while the record rests on >= parity.WELL_POSED_INLIERS pose inliers
+    (compare_stereo's `held`: at keyframe 29, on 21, F-RANSAC's inlier
+    set turns on rounding, PERF.md); run F on the port's own draws and a
+    vocabulary trained here, with the closer at RANSAC seeds F_SEEDS and
+    without it at the first, each closer run gated by
     parity.tracked_loop_gate against the closer-less one."""
     from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     t0 = time.perf_counter()
-    cfg, frames, gt, every = parity.sweep_frames()
+    cfg, frames, gt = parity.sweep_frames()
+    _, frames48, gt48 = parity.sweep_frames(48)
     out = dict(frames=len(frames),
                size=f"{cfg.camera.width}x{cfg.camera.height}",
                render_s=time.perf_counter() - t0)
     record_frames_agree(rec, "loop_tracked", frames)
+    record_frames_agree(rec, "loop_tracked48", frames48)
     t0 = time.perf_counter()
-    voc, n_desc = train_vocabulary(cfg, frames, device, every=every)
+    voc, n_desc = train_vocabulary(cfg, frames, device,
+                                   every=parity.VOC_EVERY["loop_tracked"])
     out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
                              seconds=time.perf_counter() - t0)
-    runs = [("E", parity.record_vocabulary(rec, "loop_tracked.voc", device),
-             None, parity.RecordedDraws(rec, "loop_tracked.closer"))]
-    runs += [("F_without", None, F_SEEDS[0], None)]
-    runs += [(f"F_seed{s}", voc, s, None) for s in F_SEEDS]
-    for key, run_voc, seed, draws in runs:
+    runs = [(key, parity.record_vocabulary(rec, f"{part}.voc", device),
+             None, f"{part}.closer", fr, g)
+            for key, part, fr, g in (("E", "loop_tracked", frames, gt),
+                                     ("E48", "loop_tracked48", frames48,
+                                      gt48))]
+    runs += [("F_without", None, F_SEEDS[0], None, frames, gt)]
+    runs += [(f"F_seed{s}", voc, s, None, frames, gt) for s in F_SEEDS]
+    for key, run_voc, seed, prefix, run_frames, run_gt in runs:
         vo = parity.loop_bench_tracker(cfg, device, run_voc, seed)
         rows = parity.StereoRows()
+        draws = prefix and parity.RecordedDraws(rec, prefix)
         t0 = time.perf_counter()
-        fps, launches, _ = drive(vo, frames, counters, rows, draws)
+        fps, launches, _ = drive(vo, run_frames, counters, rows, draws)
         arrays = rows.arrays(vo)
         out[key] = dict(
             fps=fps, run_s=time.perf_counter() - t0, seed=seed,
-            closing_err_m=closing_error(arrays["poses"], gt),
+            closing_err_m=closing_error(arrays["poses"], run_gt),
             loops=list(vo.loop_events), relocs=list(vo.reloc_events),
             lost=np.flatnonzero(arrays["lost"]).tolist(),
             min_inliers=int(arrays["inliers"][1:].min()),
             ba_calls=vo.ba_calls, launches=launches)
-        if draws is not None:
-            out[key].update(
-                parity=parity.compare_tracked(rec, "loop_tracked.closer",
-                                              arrays),
-                draws_used=draws.used, draws_missing=draws.missing)
+        if draws:
+            par = parity.compare_stereo(rec, prefix, arrays)
+            par["held_every_frame"] = parity.held_every_frame(par)
+            par.pop("diff_m", None)
+            out[key].update(parity=par, draws_used=draws.used,
+                            draws_missing=draws.missing)
     for s in F_SEEDS:
         out[f"F_seed{s}"]["gate"] = parity.tracked_loop_gate(
-            out[f"F_seed{s}"], out["F_without"])
+            out[f"F_seed{s}"], out["F_without"], len(frames))
     return out
 
 
@@ -2512,25 +2527,31 @@ def main():
     tracked = tracked_loop(counters, dev, rec)
     tracked["seconds"] = time.perf_counter() - t0
     loop["tracked"] = tracked
-    e = tracked["E"]
-    par = e["parity"]
     log(f"[loop tracked] {tracked['frames']} frames {tracked['size']} of "
         f"the JAX package's loop test's circle, rendered in "
         f"{tracked['render_s']:.1f} s; vocabulary of "
         f"{tracked['vocabulary']['words']} words from "
         f"{tracked['vocabulary']['descriptors']} descriptors; "
         f"{tracked['seconds']:.1f} s in all")
-    log(f"[loop tracked E] the record's vocabulary and draws "
-        f"({e['draws_used']} used, {e['draws_missing']} missing): max "
-        f"distance from JAX {par['max_diff_m']:.5f} m (first frame > 1 cm "
-        f"{par['first_parting']}), keyframes equal {par['keyframes_equal']},"
-        f" BA equal {par['ba_equal']}, loops port {par['loops_port']} jax "
-        f"{par['loops_jax']}, relocalizations port {par['relocs_port']} jax "
-        f"{par['relocs_jax']}, lost port {par['lost_port']} jax "
-        f"{par['lost_jax']}; closing error port "
-        f"{par['closing_err_port_m']:.4f} m jax "
-        f"{par['closing_err_jax_m']:.4f} m; {e['fps']:.2f} frames/s; held "
-        f"{par['held']}")
+    for key in ("E", "E48"):
+        e = tracked[key]
+        par = e["parity"]
+        log(f"[loop tracked {key}] {par['frames']} frames, the record's "
+            f"vocabulary and draws ({e['draws_used']} used, "
+            f"{e['draws_missing']} missing): max distance from JAX "
+            f"{par['max_diff_m']:.5f} m (first frame > 1 cm "
+            f"{par['first_parting']}; {par['max_diff_well_posed_m']:.5f} m "
+            f"over the {par['well_posed_frames']} frames before the record's"
+            f" first below {parity.WELL_POSED_INLIERS} inliers), keyframes "
+            f"equal {par['keyframes_equal']}, BA equal {par['ba_equal']}, "
+            f"loops port {par['loops_port']} jax {par['loops_jax']}, "
+            f"relocalizations port {par['relocs_port']} jax "
+            f"{par['relocs_jax']}, lost port {par['lost_port']} jax "
+            f"{par['lost_jax']}; closing error port "
+            f"{par['closing_err_port_m']:.4f} m jax "
+            f"{par['closing_err_jax_m']:.4f} m; {e['fps']:.2f} frames/s; "
+            f"held at every frame {par['held_every_frame']}, while well "
+            f"posed {par['held']}")
     for key in ["F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
         f = tracked[key]
         log(f"[loop tracked {key}] seed {f['seed']}, "
@@ -2540,10 +2561,13 @@ def main():
             f"{f['min_inliers']}, {f['fps']:.2f} frames/s, launches "
             f"{f['launches']}" + (f"; gate {f['gate']}" if "gate" in f
                                   else ""))
-    if not par["held"]:
+    if not tracked["E"]["parity"]["held_every_frame"]:
         raise AssertionError(f"loop tracked E: not held to the JAX record: "
-                             f"{par}")
-    for key in ["E", "F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
+                             f"{tracked['E']['parity']}")
+    if not tracked["E48"]["parity"]["held"]:
+        raise AssertionError(f"loop tracked E48: not held to the JAX record "
+                             f"while well posed: {tracked['E48']['parity']}")
+    for key in ["E", "E48", "F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
         missing = [k for k, v in tracked[key]["launches"].items() if v == 0]
         if missing:
             raise AssertionError(f"loop tracked {key}: kernels not launched:"
@@ -2928,7 +2952,7 @@ def main():
              "loop_bench_recorded_with_closer":
                  loop["recorded_with_closer"]["launches"],
              **{f"loop_tracked_{k}": loop["tracked"][k]["launches"]
-                for k in ["E", "F_without"]
+                for k in ["E", "E48", "F_without"]
                 + [f"F_seed{s}" for s in F_SEEDS]},
              "direct": direct["launches"],
              **{f"indirect_{s}": fig["launches"]

@@ -21,6 +21,8 @@ pose is posed; and the JAX tests' own bounds, which the record meets too:
 a closing error below 8 cm, a relocalized camera within 5 cm of the
 revisited ground truth."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,20 +39,13 @@ from trackingbench_slam_tpu_torch import parity
 from trackingbench_slam_tpu_torch.matchers import matcher as t_matcher
 from trackingbench_slam_tpu_torch.models import loop_closer as t_lc
 from trackingbench_slam_tpu_torch.models import vo as t_vo
-from trackingbench_slam_tpu_torch.utils.config import (CameraConfig,
-                                                       ExtractorConfig,
-                                                       MapConfig,
-                                                       PipelineConfig,
-                                                       PyramidConfig)
+from trackingbench_slam_tpu_torch.utils import corridor
 from trackingbench_slam_tpu_torch.utils.corridor import closing_error
 from trackingbench_slam_tpu_torch.utils.synthetic import (
-    CorridorScene, forward_yaw_trajectory, loop_trajectory)
+    forward_yaw_trajectory, loop_trajectory)
 from tests.test_torch_mono import ReferenceDraws
 from tests.test_torch_records import reference_semantics
 
-BASELINE = 0.25
-CAM = CameraConfig(width=512, height=384, fx=400, fy=400, cx=256, cy=192,
-                   bf=400 * BASELINE)
 CLOSER = dict(min_score=0.015, min_inliers=40)
 
 
@@ -63,14 +58,10 @@ def _one_torch_thread():
 
 
 def _cfg(keyframe_every):
-    """tests/test_loop_online.py _cfg: 3 levels x0.8, 600 features, 3 LK
-    tracking levels, no windowed BA."""
-    return PipelineConfig(
-        camera=CAM, pyramid=PyramidConfig(num_levels=3, scale_factor=0.8),
-        extractor=ExtractorConfig(num_features=600, min_threshold=10,
-                                  cell_size=24),
-        map=MapConfig(max_keyframes=16, max_points=8192),
-        keyframe_every=keyframe_every, local_ba_every=0, lk_track_levels=3)
+    """tests/test_loop_online.py _cfg (utils/corridor.py
+    tracked_loop_config) with a keyframe every `keyframe_every` frames."""
+    return dataclasses.replace(corridor.tracked_loop_config(),
+                               keyframe_every=keyframe_every)
 
 
 def _train_voc(scene, poses, jcfg):
@@ -87,12 +78,13 @@ def _train_voc(scene, poses, jcfg):
                        seed=0)
 
 
-def _frames(scene, gt, keyframe_every):
-    """The JAX tests' frames: a stereo pair on frame 0 and on keyframes,
-    a left image otherwise (float32, as rendered)."""
-    return [scene.stereo_pair(T, BASELINE)
-            if i == 0 or (i + 1) % keyframe_every == 0
-            else (scene.render(T), None) for i, T in enumerate(gt)]
+def _frames(gt, cfg):
+    """The JAX tests' frames and scene (utils/corridor.py's renderer of
+    the tracked loop): a stereo pair on frame 0 and on keyframes, a left
+    image otherwise (float32, as rendered), in the 8 m wide corridor."""
+    frames, _, scene = corridor._render(cfg, gt, corridor.TRACKED_BASELINE,
+                                        width=8.0, u8=False)
+    return frames, scene
 
 
 def _closer(voc, cam, exclude_recent, package):
@@ -114,25 +106,26 @@ def _blind():
             _cfg(keyframe_every=2), 2)
 
 
-BLACK = np.zeros((CAM.height, CAM.width), np.float32)
+def _black(cfg):
+    return np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
 
 
 def _row(vo, pose):
     return dict(T_cw=np.asarray(pose, np.float32), lost=bool(vo.lost))
 
 
-def _jax_run(scene, gt, cfg, exclude_recent, prefix, blinded):
+def _jax_run(gt, cfg, exclude_recent, prefix, blinded):
     """One of the JAX tests' runs on the JAX package (call inside
     reference_semantics()), as record entries under `prefix`."""
     from tests.test_torch_records import rows_arrays, voc_arrays
     jcfg = JConfig.from_json(cfg.to_json())
+    frames, scene = _frames(gt, cfg)
     voc = _train_voc(scene, gt, jcfg)
     vo = j_vo.StereoVO(jcfg)
     vo.loop_closer = _closer(voc, vo.cam, exclude_recent, j_lc)
-    frames = _frames(scene, gt, cfg.keyframe_every)
     if blinded:
         vo.min_track_inliers = 15
-        frames = frames + [(BLACK, None)] * 3
+        frames = frames + [(_black(cfg), None)] * 3
     rows = []
     for left, right in frames:
         vo.track(left, right)
@@ -161,21 +154,19 @@ def _jax_run(scene, gt, cfg, exclude_recent, prefix, blinded):
 
 def record_runs(log) -> dict:
     """Both JAX runs, as the record's part `loop_online`."""
-    scene = CorridorScene(CAM, width=8.0, height=5.0)
     out = {}
     with reference_semantics():
         for name, seq, blinded in (("circle", _circle, False),
                                    ("blind", _blind, True)):
             p = f"loop_online.{name}"
-            out.update(_jax_run(scene, *seq(), p, blinded))
+            out.update(_jax_run(*seq(), p, blinded))
             log(f"{p}: loops {out[f'{p}.loops'].tolist()}, relocalizations "
                 f"{out[f'{p}.relocs'].tolist()}, lost "
                 f"{np.flatnonzero(out[f'{p}.lost']).tolist()}")
     return out
 
 
-def _port_run(rec, scene, gt, cfg, exclude_recent, prefix, blinded,
-              monkeypatch):
+def _port_run(rec, gt, cfg, exclude_recent, prefix, blinded, monkeypatch):
     """The port over the frames of the record's run `prefix`, on JAX's
     draws and the record's vocabulary: (tracker, per-frame rows)."""
     monkeypatch.setattr(t_matcher, "draw_uniform",
@@ -184,10 +175,10 @@ def _port_run(rec, scene, gt, cfg, exclude_recent, prefix, blinded,
     vo.loop_closer = _closer(parity.record_vocabulary(
         rec, f"{prefix}.voc", torch.device("cpu")), vo.cam, exclude_recent,
         t_lc)
-    frames = _frames(scene, gt, cfg.keyframe_every)
+    frames, scene = _frames(gt, cfg)
     if blinded:
         vo.min_track_inliers = 15
-        frames += [(BLACK, None)] * 3
+        frames += [(_black(cfg), None)] * 3
         frames += [(scene.render(gt[8]), None)] * int(
             rec[f"{prefix}.revisits"])
     assert [parity.frame_sha(frames[0]), parity.frame_sha(frames[-1])] \
@@ -209,13 +200,7 @@ def record():
     return rec
 
 
-@pytest.fixture(scope="module")
-def scene():
-    return CorridorScene(CAM, width=8.0, height=5.0)
-
-
-def test_online_loop_closure_fires_and_corrects_like_reference(record,
-                                                               scene):
+def test_online_loop_closure_fires_and_corrects_like_reference(record):
     """Both packages close the same loops on the circle (JAX's database,
     built online, holds >= 10 keyframes, as its test asks), every live
     and final pose within 1 cm of JAX's, and the corrected trajectory
@@ -223,7 +208,7 @@ def test_online_loop_closure_fires_and_corrects_like_reference(record,
     p = "loop_online.circle"
     gt, cfg, excl = _circle()
     with pytest.MonkeyPatch.context() as mp:
-        vo, rows = _port_run(record, scene, gt, cfg, excl, p, False, mp)
+        vo, rows = _port_run(record, gt, cfg, excl, p, False, mp)
         P = vo.poses()
     assert record[f"{p}.entries"] >= 10
     assert vo.loop_closer.num_entries == record[f"{p}.entries"]
@@ -239,15 +224,14 @@ def test_online_loop_closure_fires_and_corrects_like_reference(record,
         assert closing_error(poses, gt) < 0.08, closing_error(poses, gt)
 
 
-def test_relocalization_fires_after_induced_loss_like_reference(record,
-                                                                scene):
+def test_relocalization_fires_after_induced_loss_like_reference(record):
     """The black frames leave both packages lost; the revisit relocalizes
     both on the same frame, within 1 cm of each other and 5 cm of the
     revisited pose; the frames before the blinding within 1 cm."""
     p = "loop_online.blind"
     gt, cfg, excl = _blind()
     with pytest.MonkeyPatch.context() as mp:
-        vo, rows = _port_run(record, scene, gt, cfg, excl, p, True, mp)
+        vo, rows = _port_run(record, gt, cfg, excl, p, True, mp)
     n = len(gt)
     assert record[f"{p}.entries"] >= 8
     assert vo.loop_closer.num_entries >= 8

@@ -4,7 +4,8 @@ frame from carried state.
 As a script (from the repository root, on the CPU):
 
     python -m tests.test_torch_records --write [--part NAME] [--parts DIR]
-    python -m tests.test_torch_records --carried A:B
+    python -m tests.test_torch_records --carried A:B [--part loop_tracked
+        --frames N]
 
 `--write` runs the JAX package on its TPU branches (Pallas in interpret
 mode, `tests/test_torch_align.py` `reference_tpu_semantics`; never its
@@ -22,11 +23,12 @@ sequence is written as a part first (`--parts`, default
 checkpoint to resume from), and the record is assembled once every part is
 there. `--part` writes one part only.
 
-`--carried A:B` runs JAX's loop bench (run A) up to frame A and then, for
-every frame from A to B, steps the port on the CPU from JAX's state with
-JAX's draws, printing per stage (the track step, and inside it LK,
-F-RANSAC and the pose solve from the same inputs; the keyframe; BA) where
-the two first differ.
+`--carried A:B` runs JAX's loop bench (run A; with `--part loop_tracked`
+the tracked loop at `--frames` frames, closer-less) up to frame A and
+then, for every frame from A to B, steps the port on the CPU from JAX's
+state with JAX's draws, printing per stage (the track step, and inside it
+LK, F-RANSAC and the pose solve from the same inputs; the keyframe; BA)
+where the two first differ.
 
 As tests (tier-1): the record's keys and shapes, its vocabularies through
 `vocabulary_from_numpy`, its first and last frames rendered again against
@@ -105,7 +107,7 @@ JAX_SOURCES = os.path.join(REPO, "trackingbench_slam_tpu")
 STRATEGIES = ("nn", "bf", "window", "bow", "projection")
 CLOSER = dict(min_score=0.015, min_inliers=40, exclude_recent=5)
 SEQUENCES = ("loop", "direct", "indirect", "mono", "loop_tracked",
-             "loop_online")
+             "loop_tracked48", "loop_online")
 
 
 # --------------------------------------------------------------- recording
@@ -361,30 +363,37 @@ def write_loop(parts_dir, log, n=96):
     return out
 
 
-def write_loop_tracked(parts_dir, log, n=parity.TRACKED_FRAMES):
+def write_loop_tracked(parts_dir, log, n=parity.TRACKED_FRAMES,
+                       name="loop_tracked", closerless=True):
     """The tracked loop (utils/corridor.py tracked_loop_config and
     tracked_loop_frames: the JAX package's own loop test's circle, at
     parity.TRACKED_FRAMES frames) with
     bench.py's LoopCloser (the test's settings too) on a vocabulary
     trained from JAX's ORB of every 4th left image (the test's recipe),
-    `loop_tracked.closer`, and without it, `loop_tracked.without`: every
-    frame's row and F-RANSAC draws."""
+    `loop_tracked.closer`, and with `closerless` without it,
+    `loop_tracked.without`: every frame's row and F-RANSAC draws."""
     cfg = corridor.tracked_loop_config()
     jcfg = JConfig.from_json(cfg.to_json())
     frames, gt = corridor.tracked_loop_frames(cfg, n)
-    out = {"loop_tracked.frame_sha": np.asarray([frame_sha(frames[0]),
-                                                 frame_sha(frames[-1])]),
-           "loop_tracked.gt": gt.astype(np.float32)}
+    out = {f"{name}.frame_sha": np.asarray([frame_sha(frames[0]),
+                                            frame_sha(frames[-1])]),
+           f"{name}.gt": gt.astype(np.float32)}
     with reference_semantics():
         voc, n_desc = train_jax_vocabulary(
             jcfg, frames, parity.VOC_EVERY["loop_tracked"])
-        out.update(voc_arrays("loop_tracked.voc", voc, n_desc))
-        log(f"loop_tracked: {n} frames, vocabulary from {n_desc} "
-            f"descriptors")
+        out.update(voc_arrays(f"{name}.voc", voc, n_desc))
+        log(f"{name}: {n} frames, vocabulary from {n_desc} descriptors")
         for run, closer in (("closer", True), ("without", False)):
-            out.update(run_loop_bench(jcfg, frames, gt, voc, closer,
-                                      f"loop_tracked.{run}", parts_dir, log))
+            if closer or closerless:
+                out.update(run_loop_bench(jcfg, frames, gt, voc, closer,
+                                          f"{name}.{run}", parts_dir, log))
     return out
+
+
+def write_loop_tracked48(parts_dir, log, n=48):
+    """The tracked loop at the JAX loop test's own 48 frames, with the
+    closer only, `loop_tracked48.closer` (chip_smoke.py's run E48)."""
+    return write_loop_tracked(parts_dir, log, n, "loop_tracked48", False)
 
 
 def write_direct(parts_dir, log, n=24):
@@ -481,6 +490,7 @@ def write_loop_online(parts_dir, log, n=None):
 
 WRITERS = dict(loop=write_loop, direct=write_direct, indirect=write_indirect,
                mono=write_mono, loop_tracked=write_loop_tracked,
+               loop_tracked48=write_loop_tracked48,
                loop_online=write_loop_online)
 
 
@@ -746,14 +756,21 @@ def carried_stages(jvo, frame, device) -> list:
     return out
 
 
-def carried_full_width(a: int, b: int, parts_dir: str = PARTS):
-    """The loop bench's run A on JAX up to frame `a` (from run A's latest
-    checkpoint at or before it, where the recorder left one), then for
-    every frame from `a` to `b` the port's stages from JAX's state on
+def carried_full_width(a: int, b: int, parts_dir: str = PARTS,
+                       name: str = "loop", n: int | None = None):
+    """The loop bench's run A (or with `name` "loop_tracked" the tracked
+    loop at `n` frames, closer-less) on JAX up to frame `a` (from run A's
+    latest checkpoint at or before it, where the recorder left one), then
+    for every frame from `a` to `b` the port's stages from JAX's state on
     JAX's draws, on the CPU, printed stage by stage."""
-    cfg = corridor.loop_bench_config()
+    if name == "loop_tracked":
+        cfg = corridor.tracked_loop_config()
+        frames, _ = corridor.tracked_loop_frames(
+            cfg, n or parity.TRACKED_FRAMES)
+    else:
+        cfg = corridor.loop_bench_config()
+        frames, _, _ = corridor.loop_frames(cfg, n or 96)
     jcfg = JConfig.from_json(cfg.to_json())
-    frames, gt, _ = corridor.loop_frames(cfg, 96)
     cpu = torch.device("cpu")
     with reference_semantics():
         jvo = j_vo.StereoVO(jcfg)
@@ -761,7 +778,7 @@ def carried_full_width(a: int, b: int, parts_dir: str = PARTS):
         start, calls = 0, Calls()
         ckpts = sorted(c for c in glob.glob(os.path.join(
             parts_dir, "loop.A.ckpt[0-9][0-9][0-9].pkl"))
-            if int(c[-7:-4]) <= a)
+            if int(c[-7:-4]) <= a and name == "loop")
         if ckpts:
             start = len(stereo_resume(jvo, ckpts[-1], calls))
         print(f"JAX from frame {start} to {a}", flush=True)
@@ -1046,6 +1063,8 @@ def _counts(record, prefix):
      ("inliers", "lost", "keyframe", "ba", "landmarks")),
     ("loop_tracked.without", parity.TRACKED_FRAMES,
      ("inliers", "lost", "keyframe", "ba", "landmarks")),
+    ("loop_tracked48.closer", 48,
+     ("inliers", "lost", "keyframe", "ba", "landmarks")),
     ("direct", None, ("tracked", "promoted")),
     ("mono", None, ("inliers", "initialized", "landmarks")),
 ] + [(f"indirect.{s}", None, ("inliers",)) for s in STRATEGIES])
@@ -1075,7 +1094,8 @@ def test_record_runs_have_their_rows(record, prefix, frames, keys):
 
 
 @pytest.mark.parametrize("prefix", ["loop.voc", "indirect.voc",
-                                    "loop_tracked.voc"])
+                                    "loop_tracked.voc",
+                                    "loop_tracked48.voc"])
 def test_record_vocabulary_round_trip(record, prefix):
     voc = parity.record_vocabulary(record, prefix, torch.device("cpu"))
     back = vocabulary_to_numpy(voc)
@@ -1090,7 +1110,7 @@ def _render_one(name, cfg, index, n):
     """Frame `index` of sequence `name` rendered alone, as its generator
     renders it inside the whole sequence."""
     base = corridor.BASELINE
-    if name == "loop_tracked":
+    if name.startswith("loop_tracked"):
         scene = CorridorScene(cfg.camera, width=8.0, height=5.0)
         T = loop_trajectory(n, radius=1.0)[index]
         stereo = index == 0 or (index + 1) % cfg.keyframe_every == 0
@@ -1117,6 +1137,7 @@ def _render_one(name, cfg, index, n):
 
 CONFIGS = dict(loop=corridor.loop_bench_config,
                loop_tracked=corridor.tracked_loop_config,
+               loop_tracked48=corridor.tracked_loop_config,
                direct=corridor.direct_config, indirect=euroc_stereo_config,
                mono=corridor.mono_config)
 
@@ -1128,7 +1149,8 @@ def test_record_frames_render_again(record, name):
     trajectories' ground truth."""
     cfg = CONFIGS[name]()
     prefix = {"loop": "loop.A", "indirect": "indirect.nn",
-              "loop_tracked": "loop_tracked.closer"}.get(name, name)
+              "loop_tracked": "loop_tracked.closer",
+              "loop_tracked48": "loop_tracked48.closer"}.get(name, name)
     n = _counts(record, prefix)
     shas = record[f"{name}.frame_sha"].tolist()
     for index, want in zip((0, n - 1), shas):
@@ -1156,6 +1178,23 @@ def test_record_tracked_loop_is_tracked_and_closed(record):
     # the same first frame as the loop test's 48-frame circle
     assert record["loop_tracked.frame_sha"][0] == record[
         "loop_online.circle.frame_sha"][0]
+
+
+def test_record_loop_test_circle_is_tracked_and_closed(record):
+    """The JAX loop test's own circle at its 48 frames (part
+    loop_tracked48: the same first and last frame as part loop_online's
+    circle): the JAX package loses no frame, closes the revisit loop and
+    ends within 5 cm of the start; its pose inliers dip below
+    WELL_POSED_INLIERS (to 21 at keyframe 29), so chip_smoke.py's run E48
+    is held to it only while they do not."""
+    p = "loop_tracked48.closer"
+    assert not record[f"{p}.lost"].any()
+    assert record[f"{p}.loops"].tolist() == [48]
+    assert len(record[f"{p}.relocs"]) == 0
+    assert record[f"{p}.closing_err_m"] < parity.CLOSING_TOL_M
+    assert record["loop_tracked48.frame_sha"].tolist() == record[
+        "loop_online.circle.frame_sha"].tolist()
+    assert record[f"{p}.inliers"][1:].min() < parity.WELL_POSED_INLIERS
 
 
 def test_draws_selecting_reproduces_jax_hypotheses():
@@ -1235,7 +1274,7 @@ def _fake_record(n=6):
            "r.keyframe": np.arange(n) % 2 == 1, "r.ba": np.arange(n) == 3,
            "r.loops": np.asarray([5], np.int32),
            "r.relocs": np.zeros(0, np.int32),
-           "r.closing_err_m": np.float64(0.25), "loop.gt": T.copy(),
+           "r.closing_err_m": np.float64(0.25), "r.gt": T.copy(),
            "r.ransac_frame": np.asarray([1, 2], np.int32),
            "r.ransac_site": np.asarray([0, 0], np.int8),
            "r.ransac_valid": np.packbits(np.ones((2, 40), bool), axis=1),
@@ -1272,7 +1311,38 @@ def test_compare_stereo_finds_the_parting_and_lost_frames():
     assert out["loops_port"] == [] and out["loops_jax"] == [5]
     assert out["relocs_port"] == [2] and out["closing_err_jax_m"] == 0.25
     rows["T_cw"] = rec["r.T_cw"].copy()
-    assert parity.compare_stereo(rec, "r", rows)["held"]
+    out = parity.compare_stereo(rec, "r", rows)
+    assert out["held"] and not parity.held_every_frame(out)
+    # held at every frame: no frame lost, the same loops and relocalizations
+    rows["lost"] = rec["r.lost"] = np.zeros(6, bool)
+    rows.update(loops=[5], relocs=[], poses=rec["r.T_cw"].copy(),
+                keyframe=rec["r.keyframe"].copy())
+    out = parity.compare_stereo(rec, "r", rows)   # gt from "r.gt"
+    assert out["closing_err_port_m"] == 0.0 and parity.held_every_frame(out)
+    rows["loops"] = []
+    assert not parity.held_every_frame(parity.compare_stereo(rec, "r", rows))
+
+
+def test_tracked_loop_gate_asks_for_the_revisit_loop_and_a_margin():
+    """A closer run passes on a loop in the last REVISIT_FRAMES frames, a
+    closing error below CLOSING_TOL_M and CLOSER_MARGIN_M below the
+    closer-less run's, no frame lost in either."""
+    def run(err, loops=(), lost=()):
+        return dict(closing_err_m=err, loops=list(loops), lost=list(lost))
+    without = run(0.0539)
+    assert parity.tracked_loop_gate(run(0.0402, [21, 72]), without,
+                                    72)["passed"]
+    for closer, check in ((run(0.0402, [21]), "revisit_loop"),
+                          (run(0.0402, [21, 72], [30]), "no_lost"),
+                          (run(0.0510, [72]), "closes"),
+                          (run(0.0495, [72]), "below_closerless")):
+        gate = parity.tracked_loop_gate(closer, without, 72)
+        assert not gate["passed"] and not gate[check], (check, gate)
+    gate = parity.tracked_loop_gate(run(0.0402, [72]), run(0.0539, [],
+                                                           [5]), 72)
+    assert not gate["no_lost"]
+    assert abs(parity.tracked_loop_gate(run(0.0402, [72]), without, 72)[
+        "margin_m"] - 0.0137) < 1e-9
 
 
 def test_recorded_draws_are_handed_out_by_frame():
@@ -1301,6 +1371,34 @@ def test_recorded_draws_are_handed_out_by_frame():
     assert float(u[:, 3].max()) == pytest.approx(1e-9)
 
 
+def test_carried_on_cpu_agrees_with_itself_on_the_cpu(one_thread):
+    """parity.carried_on_cpu steps a tracker's next frame from its state on
+    the tracker's device and on a CPU copy, stage by stage; for a tracker
+    on the CPU both are the same computation, so every stage agrees
+    exactly (here on a keyframe, which adds the keyframe step), and the
+    tracker itself is not stepped."""
+    cfg = corridor.tracked_loop_config()
+    frames, _ = corridor.tracked_loop_frames(cfg, 48)
+    vo = t_vo.StereoVO(cfg, device="cpu")
+    for f in frames[:2]:
+        vo.track(*f)
+    state, fid = vo.state, vo._fid
+    gen = torch.Generator().manual_seed(0)
+    u = t_ransac.draw_uniform(256, vo.state.prev.capacity, gen, "cpu")
+    out = parity.carried_on_cpu(vo, frames[2], u)
+    assert vo.state is state and vo._fid == fid
+    n_ok, n_ok_cpu, same = out["lk_ok"]
+    assert n_ok == n_ok_cpu > 100 and same == vo.state.prev.capacity
+    assert out["lk_xy_max"] == 0.0 and out["T_pred_apart"] == 0.0
+    assert out["ransac_inliers"][0] == out["ransac_inliers"][1] > 100
+    assert out["pose_dt_m"] == 0.0 and out["step_dt_m"] == 0.0
+    assert out["step_inliers"][0] == out["step_inliers"][1]
+    kf = out["keyframe"]
+    assert kf["valid"][0] == kf["valid"][1] == kf["valid"][2]
+    assert kf["landmarks"][0] == kf["landmarks"][1]
+    assert kf["kp_xy_max"] == 0.0 and kf["ur_max"] == 0.0
+
+
 def test_parity_entry_point_needs_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
@@ -1316,7 +1414,9 @@ def main(argv):
     ap.add_argument("--parts", default=PARTS)
     ap.add_argument("--frames", type=int, default=None,
                     help="the part's sequence at this many frames")
-    ap.add_argument("--carried", default=None, metavar="A:B")
+    ap.add_argument("--carried", default=None, metavar="A:B",
+                    help="carried steps of the loop bench (or of --part "
+                         "loop_tracked at --frames) from frame A to B")
     ap.add_argument("--counts", type=int, default=None, metavar="N",
                     help="JAX's stage counts over the loop bench's first "
                          "N frames (run A)")
@@ -1326,7 +1426,7 @@ def main(argv):
         write(args.parts, args.part, args.frames)
     if args.carried:
         a, b = (int(x) for x in args.carried.split(":"))
-        carried_full_width(a, b)
+        carried_full_width(a, b, name=args.part or "loop", n=args.frames)
     if args.counts:
         jax_counts(args.counts)
 

@@ -25,20 +25,29 @@ vocabulary and run B's draws) and prints a line a frame, the record's
 columns beside the port's (with --counts, the stage counts after it), then
 the report as one JSON line.
 
+    python -m trackingbench_slam_tpu_torch.parity --tracked [PART]
+        [--carried A:B] [--cpu]
+
+is run E: the tracked loop (part loop_tracked, or loop_tracked48: the
+JAX loop test's own 48 frames) with bench.py's LoopCloser on the record's
+vocabulary and draws, a line a frame and the report, held at every frame
+(`held_every_frame`) or while well posed (`held`); with `--carried A:B`
+it prints before each frame from A to B `carried_on_cpu`: the frame
+stepped from the tracker's state on the card and on a CPU copy, stage by
+stage.
+
     python -m trackingbench_slam_tpu_torch.parity --loop-tracked
-        [--seeds 8] [--tracked-frames N | --circle N:EASE
-        [--stop-at-fail]] [--cpu]
+        [--seeds 8] [--frames N] [--full-width] [--cpu]
 
 is the tracked loop's seed sweep (the JAX package's own loop test's
 configuration and circle at TRACKED_FRAMES frames, or N, utils/corridor.py
-`tracked_loop_config`, which both packages track without losing a frame):
-for each RANSAC generator seed the loop without and with bench.py's
+`tracked_loop_config`, which both packages track without losing a frame;
+with `--full-width` its circle at the loop bench's configuration): for
+each RANSAC generator seed the loop without and with bench.py's
 LoopCloser (on a vocabulary trained from the port's ORB), a line per seed
-(loops, relocalizations, lost frames, both closing errors, whether it
-passes `tracked_loop_gate`), then a JSON line; it exits 1 if a seed
-fails. `--circle N:EASE` sweeps the loop bench's circle at N frames and
-that speed profile instead (`--stop-at-fail` ends at the first failing
-seed).
+(loops, relocalizations, lost frames, both closing errors and their
+margin, whether it passes `tracked_loop_gate`), then a JSON line; it
+exits 1 if a seed fails.
 """
 
 from __future__ import annotations
@@ -74,10 +83,13 @@ CLOSING_TOL_M = 0.05           # bench.py's closing-error gate
 # frames (bench.py's recipe) and of the tracked loop's (its test's)
 VOC_EVERY = {"loop": 12, "loop_tracked": 4}
 # frames of the tracked loop's circle: the JAX loop test's 48 dip to 21
-# pose inliers at frame 29 and fail the gate at 2 RANSAC seeds in 8, 96
-# close 2 cm above the closer-less run at every seed; 72 keep >= 57
-# inliers and pass at every seed (PERF.md)
+# pose inliers at frame 29, where F-RANSAC's inlier set turns on rounding,
+# and fail the gate at 2 RANSAC seeds in 8; 96 close 2 mm above the
+# closer-less run at every seed; 72 keep >= 57 inliers and pass at every
+# seed (PERF.md)
 TRACKED_FRAMES = 72
+REVISIT_FRAMES = 10      # the revisit loop closes within the last 10 frames
+CLOSER_MARGIN_M = 0.005  # and ends >= 5 mm below the closer-less run
 
 
 def load_record(path: str = RECORD) -> dict:
@@ -142,18 +154,25 @@ class RecordedDraws:
         self.used = 0
         self.missing = 0
 
-    def drawer(self, site: str):
-        code = SITES[site]
+    def call(self, site: str) -> int | None:
+        """The record's call at frame `at` and `site`, if it holds one."""
+        k = np.flatnonzero((self.frames == self.at)
+                           & (self.sites == SITES[site]))
+        return int(k[0]) if len(k) == 1 else None
 
+    def uniform(self, k: int, n: int, device) -> torch.Tensor:
+        """Call `k`'s (256, n) draws."""
+        return draws_selecting(self.idx[k], torch.from_numpy(
+            self.valid[k, :n]).to(device))
+
+    def drawer(self, site: str):
         def draw(num_samples, n, generator, device):
-            k = np.flatnonzero((self.frames == self.at)
-                               & (self.sites == code))
-            if len(k) != 1 or num_samples != self.idx.shape[1]:
+            k = self.call(site)
+            if k is None or num_samples != self.idx.shape[1]:
                 self.missing += 1
                 return _draw(num_samples, n, generator, device)
             self.used += 1
-            return draws_selecting(self.idx[k[0]], torch.from_numpy(
-                self.valid[k[0], :n]).to(device))
+            return self.uniform(k, n, device)
         return draw
 
     @contextlib.contextmanager
@@ -238,14 +257,29 @@ def compare_stereo(rec: dict, prefix: str, rows: dict) -> dict:
         loops_jax=rec[f"{prefix}.loops"].tolist(),
         relocs_port=[int(x) for x in rows.get("relocs", [])],
         relocs_jax=rec[f"{prefix}.relocs"].tolist(),
-        closing_err_jax_m=float(rec[f"{prefix}.closing_err_m"]))
+        closing_err_jax_m=float(rec[f"{prefix}.closing_err_m"]),
+        frames_jax=len(rec[f"{prefix}.T_cw"]))
     if "poses" in rows:
         from trackingbench_slam_tpu_torch.utils.corridor import closing_error
         out["closing_err_port_m"] = closing_error(
-            rows["poses"], rec["loop.gt"].astype(np.float64))
+            rows["poses"], rec[f"{prefix.split('.')[0]}.gt"].astype(
+                np.float64))
     out["held"] = bool(same["keyframe"] and same["ba"]
                        and out["max_diff_well_posed_m"] <= POSITION_TOL_M)
     return out
+
+
+def held_every_frame(report: dict) -> bool:
+    """A compare_stereo report held at every frame of the record (the
+    tracked loop's gate): no frame more than POSITION_TOL_M from JAX, the
+    same keyframe, BA, loop and relocalization frames, no frame lost in
+    either package."""
+    r = report
+    return bool(r["frames"] == r["frames_jax"] and r["first_parting"] is None
+                and r["keyframes_equal"] and r["ba_equal"]
+                and r["loops_port"] == r["loops_jax"]
+                and r["relocs_port"] == r["relocs_jax"]
+                and not r["lost_port"] and not r["lost_jax"])
 
 
 class StereoRows:
@@ -300,11 +334,14 @@ def loop_bench_tracker(cfg, device, voc=None, seed=None):
 
 
 def run_loop_bench(cfg, frames, device, voc=None, draws=None,
-                   on_frame=None, seed=None, counts=None) -> tuple:
+                   on_frame=None, seed=None, counts=None,
+                   before_frame=None) -> tuple:
     """The loop bench on the port, a row a frame: StereoVO at `cfg`, with
     bench.py's LoopCloser when `voc` is given, on `draws`
     (RecordedDraws) when given, else on the generator seeded `seed`;
-    `counts` (StageCounts) counts its stages. Returns (rows, vo)."""
+    `counts` (StageCounts) counts its stages; `before_frame(i, vo,
+    frame)` and `on_frame(i, row)` are called around each frame. Returns
+    (rows, vo)."""
     vo = loop_bench_tracker(cfg, device, voc, seed)
     rows = StereoRows()
     with contextlib.ExitStack() as stack:
@@ -317,6 +354,8 @@ def run_loop_bench(cfg, frames, device, voc=None, draws=None,
                 draws.at = i
             if counts:
                 counts.at = i
+            if before_frame:
+                before_frame(i, vo, f)
             rows.before(vo)
             vo.track(*f)
             rows.after(vo)
@@ -438,75 +477,42 @@ def counts_line(row: dict) -> str:
     return f"f{row['frame']:3d} counts " + " ".join(cols)
 
 
-def tracked_loop_gate(with_closer: dict, without: dict) -> dict:
+def tracked_loop_gate(with_closer: dict, without: dict, frames: int) -> dict:
     """The tracked loop's gate on one seed (each dict: closing_err_m,
-    loops, lost frames): no frame flagged lost in either run, >= 1 loop
-    closed, a closing error < CLOSING_TOL_M and below the closer-less
+    loops, lost frames; `frames` the circle's length): no frame flagged
+    lost in either run, the revisit loop closed (a loop at one of the last
+    REVISIT_FRAMES frames; both packages also close one at frame 21,
+    which no test holds to ground truth), a closing error below
+    CLOSING_TOL_M and at least CLOSER_MARGIN_M below the closer-less
     run's."""
+    margin = without["closing_err_m"] - with_closer["closing_err_m"]
     checks = dict(
         no_lost=not with_closer["lost"] and not without["lost"],
-        loop_closed=len(with_closer["loops"]) >= 1,
+        revisit_loop=any(f >= frames - REVISIT_FRAMES
+                         for f in with_closer["loops"]),
         closes=with_closer["closing_err_m"] < CLOSING_TOL_M,
-        below_closerless=(with_closer["closing_err_m"]
-                          < without["closing_err_m"]))
-    return dict(checks, passed=all(checks.values()))
+        below_closerless=margin >= CLOSER_MARGIN_M)
+    return dict(checks, margin_m=margin, passed=all(checks.values()))
 
 
-def compare_tracked(rec: dict, prefix: str, rows: dict) -> dict:
-    """A port run of the tracked loop against the record's run `prefix`,
-    held at every frame: positions within POSITION_TOL_M, the same
-    keyframe, BA, loop and relocalization frames, no frame lost."""
-    pose = compare_poses(rows["T_cw"], rec[f"{prefix}.T_cw"])
-    n = pose["frames"]
-    eq = {k: bool(np.array_equal(np.asarray(rows[k][:n], bool),
-                                 rec[f"{prefix}.{k}"][:n].astype(bool)))
-          for k in ("keyframe", "ba")}
-    out = dict(
-        frames=n, first_parting=pose["first_parting"],
-        max_diff_m=pose["max_diff_m"], keyframes_equal=eq["keyframe"],
-        ba_equal=eq["ba"],
-        lost_port=np.flatnonzero(np.asarray(rows["lost"], bool)).tolist(),
-        lost_jax=np.flatnonzero(rec[f"{prefix}.lost"]).tolist(),
-        loops_port=[int(x) for x in rows.get("loops", [])],
-        loops_jax=rec[f"{prefix}.loops"].tolist(),
-        relocs_port=[int(x) for x in rows.get("relocs", [])],
-        relocs_jax=rec[f"{prefix}.relocs"].tolist(),
-        closing_err_jax_m=float(rec[f"{prefix}.closing_err_m"]))
-    if "poses" in rows:
-        from trackingbench_slam_tpu_torch.utils.corridor import closing_error
-        gt = rec[f"{prefix.split('.')[0]}.gt"].astype(np.float64)
-        out["closing_err_port_m"] = closing_error(rows["poses"], gt)
-    out["held"] = bool(
-        n == len(rec[f"{prefix}.T_cw"]) and pose["max_diff_m"]
-        <= POSITION_TOL_M and eq["keyframe"] and eq["ba"]
-        and out["loops_port"] == out["loops_jax"]
-        and out["relocs_port"] == out["relocs_jax"]
-        and not out["lost_port"] and not out["lost_jax"])
-    return out
-
-
-def sweep_frames(circle=None, n=TRACKED_FRAMES):
-    """(cfg, frames, gt, vocabulary stride) of the tracked loop
-    (utils/corridor.py tracked_loop_config, tracked_loop_frames at `n`
-    frames), or with `circle` = (n, ease) of the loop bench's circle at n
-    frames and that speed profile."""
+def sweep_frames(n: int = TRACKED_FRAMES, full_width: bool = False):
+    """(cfg, frames, gt) of the tracked loop at n frames (utils/corridor.py
+    tracked_loop_config, tracked_loop_frames), or with `full_width` of its
+    circle at the loop bench's configuration (loop_bench_config: 1226x370,
+    2000 features, windowed BA on every 2nd keyframe)."""
     from trackingbench_slam_tpu_torch.utils import corridor
-    if circle is None:
-        cfg = corridor.tracked_loop_config()
-        frames, gt = corridor.tracked_loop_frames(cfg, n)
-        return cfg, frames, gt, VOC_EVERY["loop_tracked"]
-    cfg = corridor.loop_bench_config()
-    frames, gt, _ = corridor.loop_frames(cfg, circle[0], ease=circle[1])
-    return cfg, frames, gt, VOC_EVERY["loop"]
+    if full_width:
+        cfg = corridor.loop_bench_config()
+        return (cfg, *corridor.tracked_loop_frames(cfg, n, corridor.BASELINE))
+    cfg = corridor.tracked_loop_config()
+    return (cfg, *corridor.tracked_loop_frames(cfg, n))
 
 
-def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None,
-               stop_at_fail=False) -> list:
+def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None) -> list:
     """The loop without and with bench.py's LoopCloser (on `voc`) for
     each RANSAC generator seed: a dict per seed with both runs' closing
     errors, loops, relocalizations and lost frames, and the gate's
-    verdict (tracked_loop_gate); with `stop_at_fail`, up to the first
-    seed that fails."""
+    verdict (tracked_loop_gate)."""
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     out = []
     for seed in seeds:
@@ -520,12 +526,11 @@ def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None,
                 lost=np.flatnonzero(rows["lost"]).tolist(),
                 min_inliers=int(rows["inliers"][1:].min()))
         row = dict(seed=seed, without=runs["without"], closer=runs["with"],
-                   **tracked_loop_gate(runs["with"], runs["without"]))
+                   **tracked_loop_gate(runs["with"], runs["without"],
+                                       len(frames)))
         if log:
             log(sweep_line(row))
         out.append(row)
-        if stop_at_fail and not row["passed"]:
-            break
     return out
 
 
@@ -536,6 +541,7 @@ def sweep_line(r: dict) -> str:
             f"{c['closing_err_m']:.4f} m (min inliers {c['min_inliers']}); "
             f"without loops lost {w['lost']} closing error "
             f"{w['closing_err_m']:.4f} m (min inliers {w['min_inliers']}); "
+            f"margin {r['margin_m']:.4f} m; "
             f"{'pass' if r['passed'] else 'FAIL'}")
 
 
@@ -550,23 +556,168 @@ def frame_line(i: int, row: dict, rec: dict, prefix: str, gt) -> str:
             f" | jax {cols(rec[f'{prefix}.T_cw'][i], rec[f'{prefix}.inliers'][i], rec[f'{prefix}.lost'][i])}")
 
 
+def _to(tree, device):
+    """A state (NamedTuples and tuples of tensors) copied to `device`."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, tuple):
+        items = [_to(x, device) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return tree
+
+
+def _apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference of two tensors on any devices."""
+    if a.numel() == 0:
+        return 0.0
+    return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+
+def _centre_apart(T_a: torch.Tensor, T_b: torch.Tensor) -> float:
+    return float(np.linalg.norm(centres(T_a.cpu().numpy()[None])
+                                - centres(T_b.cpu().numpy()[None])))
+
+
+def carried_on_cpu(vo, frame, uniform: torch.Tensor) -> dict:
+    """`vo`'s next frame stepped from its state on its device and on a CPU
+    copy of that state, on the same draws `uniform` (256, N), stage by
+    stage, each from the device's output of the stage before: LK (the
+    converged-in-image flags, positions where both converged), F-RANSAC
+    on the device's LK result, the pose solve on the device's landmark
+    edges, the whole track step; at a keyframe (a right image at the
+    keyframe cadence) the keyframe step from the device's track output.
+    Returns (device, CPU) pairs and largest differences; `vo` itself is
+    not stepped."""
+    from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
+    from trackingbench_slam_tpu_torch.geometry import se3
+    from trackingbench_slam_tpu_torch.models.frame import make_frame
+    from trackingbench_slam_tpu_torch.solvers import pose_opt
+    from trackingbench_slam_tpu_torch.utils.device import upload_image
+    cfg, dev, cpu = vo.cfg, vo.device, torch.device("cpu")
+    devs = (dev, cpu)
+    cams = {dev: vo.cam, cpu: cam_mod.CameraParams.from_config(cfg.camera,
+                                                               cpu)}
+    st = {dev: vo.state, cpu: _to(vo.state, cpu)}
+    left = {d: upload_image(frame[0], d) for d in devs}
+    nlv = cfg.lk_track_levels if cfg.lk_track_levels > 0 else None
+    M = vo.state.map.capacity
+    lk = {}
+    for d in devs:
+        s = st[d]
+        f_cur = make_frame(left[d], cfg.extractor.num_features,
+                           cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
+        T_pred = se3.normalize(se3.compose(s.T_rel, s.T_cw))
+        mp0 = s.prev.map_idx.clamp(0, M - 1).long()
+        p_pred = se3.transform_points(T_pred, s.map.pos[mp0])
+        pred_ok = ((s.prev.map_idx >= 0) & s.prev.valid & s.map.valid[mp0]
+                   & (p_pred[:, 2] > 0.05))
+        init_off = torch.where(pred_ok[:, None], cam_mod.world2cam(
+            cams[d], p_pred) - s.prev.kp_xy, s.flow[None, :])
+        res, xy = matcher_mod.search_by_opflow(
+            f_cur, s.prev, None, cfg.matcher, scale=cfg.pyramid.scale_factor,
+            use_ransac=False, num_levels=nlv, init_offset=init_off)
+        lk[d] = res.ok, xy, T_pred
+    ok, xy, T_pred = lk[dev]
+    both = (ok & lk[cpu][0].to(dev))
+    out = dict(
+        lk_ok=(int(ok.sum()), int(lk[cpu][0].sum()),
+               int((ok == lk[cpu][0].to(dev)).sum())),
+        lk_xy_max=_apart(xy[both], lk[cpu][1].to(dev)[both]),
+        T_pred_apart=_apart(T_pred, lk[cpu][2]))
+    inl = {d: ransac_mod.fundamental_ransac(
+        st[d].prev.kp_xy, xy.to(d), ok.to(d), uniform=uniform.to(d))[0]
+        for d in devs}
+    out["ransac_inliers"] = (int((inl[dev] & ok).sum()),
+                             int((inl[cpu] & ok.cpu()).sum()),
+                             int((inl[dev].cpu() == inl[cpu]).sum()))
+    s = st[dev]
+    mp = s.prev.map_idx.clamp(0, M - 1).long()
+    edges = ok & inl[dev] & (s.prev.map_idx >= 0) & s.prev.valid \
+        & s.map.valid[mp]
+    inv_s2 = pose_opt.level_inv_sigma2(s.prev.kp_level,
+                                       cfg.pyramid.scale_factor)
+    opt = {d: pose_opt.pose_optimization(
+        cams[d], T_pred.to(d), s.map.pos[mp].to(d), xy.to(d),
+        inv_s2.to(d), edges.to(d), cfg.solver) for d in devs}
+    out.update(pose_edges=int(edges.sum()),
+               pose_dt_m=_centre_apart(opt[dev].T_cw, opt[cpu].T_cw),
+               pose_inliers=(int(opt[dev].num_inliers),
+                             int(opt[cpu].num_inliers)))
+    step = {d: vo_mod.track_step(st[d], left[d], cams[d], cfg,
+                                 uniform=uniform.to(d)) for d in devs}
+    out.update(step_dt_m=_centre_apart(step[dev].T_cw, step[cpu].T_cw),
+               step_inliers=(int(step[dev].num_inliers),
+                             int(step[cpu].num_inliers)))
+    if (frame[1] is not None and not vo.lost
+            and (vo._fid + 1) % cfg.keyframe_every == 0):
+        tracked = {dev: step[dev], cpu: _to(step[dev], cpu)}
+        kf = {d: vo_mod.keyframe_step(tracked[d], upload_image(frame[1], d),
+                                      cams[d], cfg) for d in devs}
+        va, vb = kf[dev].prev.valid.cpu(), kf[cpu].prev.valid
+        ur_a, ur_b = kf[dev].kfs.kp_ur.cpu(), kf[cpu].kfs.kp_ur
+        has = (ur_a >= 0) & (ur_b >= 0)
+        out["keyframe"] = dict(
+            valid=(int(va.sum()), int(vb.sum()), int((va & vb).sum())),
+            kp_xy_max=_apart(kf[dev].prev.kp_xy.cpu()[va & vb],
+                             kf[cpu].prev.kp_xy[va & vb]),
+            landmarks=(int(kf[dev].map.valid.sum()),
+                       int(kf[cpu].map.valid.sum())),
+            ur_rows=(int((ur_a >= 0).sum()), int((ur_b >= 0).sum())),
+            ur_max=_apart(ur_a[has], ur_b[has]))
+    return out
+
+
+def tracked_main(args, device) -> int:
+    """--tracked: run E, the tracked loop with bench.py's LoopCloser on the
+    record's vocabulary and draws, a line a frame beside the record, then
+    the report (compare_stereo, held_every_frame); with --carried A:B,
+    before each frame from A to B carried_on_cpu's line."""
+    rec = load_record(args.record)
+    part = args.tracked
+    prefix = f"{part}.closer"
+    n = len(rec[f"{prefix}.T_cw"])
+    cfg, frames, gt = sweep_frames(n)
+    if frame_sha(frames[-1]) != rec[f"{part}.frame_sha"][1]:
+        raise SystemExit("the tracked loop renders other frames than the "
+                         "record's")
+    frames = frames[:args.frames or n]
+    draws = RecordedDraws(rec, prefix)
+    a, b = (map(int, args.carried.split(":")) if args.carried
+            else (0, -1))
+
+    def carry(i, vo, frame):
+        k = draws.call("track")
+        if a <= i <= b and vo.state is not None and k is not None:
+            u = draws.uniform(k, vo.state.prev.capacity, device)
+            print(json.dumps(dict(frame=i, carried=carried_on_cpu(
+                vo, frame, u))), flush=True)
+    rows, _ = run_loop_bench(
+        cfg, frames, device, record_vocabulary(rec, f"{part}.voc", device),
+        draws,
+        lambda i, r: print(frame_line(i, r, rec, prefix, gt), flush=True),
+        before_frame=carry)
+    report = compare_stereo(rec, prefix, rows)
+    report.update(run=f"E on {part}",
+                  held_every_frame=held_every_frame(report),
+                  draws_used=draws.used, draws_missing=draws.missing)
+    print(json.dumps(report))
+    return 0
+
+
 def sweep_main(args, device) -> int:
     """--loop-tracked: the seed sweep, a line a seed, then the JSON."""
     from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
-    circle = None
-    if args.circle:
-        n, ease = args.circle.split(":")
-        circle = int(n), float(ease)
-    cfg, frames, gt, every = sweep_frames(circle, args.tracked_frames)
-    voc, n_desc = train_vocabulary(cfg, frames, device, every=every)
-    name = (f"the loop bench's circle at {circle[0]} frames, ease "
-            f"{circle[1]}" if circle else "the tracked loop")
-    print(f"{name}: {len(frames)} frames {cfg.camera.width}x"
+    n = args.frames or TRACKED_FRAMES
+    cfg, frames, gt = sweep_frames(n, args.full_width)
+    voc, n_desc = train_vocabulary(cfg, frames, device,
+                                   every=VOC_EVERY["loop_tracked"])
+    print(f"the tracked loop: {n} frames {cfg.camera.width}x"
           f"{cfg.camera.height}; vocabulary of {voc.num_words} words from "
           f"{n_desc} descriptors", flush=True)
     rows = seed_sweep(cfg, frames, gt, device, voc, range(args.seeds),
-                      lambda m: print(m, flush=True), args.stop_at_fail)
-    print(json.dumps(dict(loop=name, frames=len(frames), seeds=rows,
+                      lambda m: print(m, flush=True))
+    print(json.dumps(dict(frames=n, full_width=args.full_width, seeds=rows,
                           all_passed=all(r["passed"] for r in rows))))
     return 0 if all(r["passed"] for r in rows) else 1
 
@@ -580,25 +731,30 @@ def main(argv=None) -> int:
                          "vocabulary and run B's draws")
     ap.add_argument("--free", action="store_true",
                     help="the port's own draws instead of the record's")
-    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="the first N frames; the sweep: the circle's "
+                         "length (default TRACKED_FRAMES)")
     ap.add_argument("--counts", action="store_true",
                     help="count each stage's survivors (StageCounts)")
+    ap.add_argument("--tracked", nargs="?", const="loop_tracked",
+                    default=None, metavar="PART",
+                    help="run E on the record's tracked loop (part "
+                         "loop_tracked or loop_tracked48)")
+    ap.add_argument("--carried", default=None, metavar="A:B",
+                    help="with --tracked: carried_on_cpu at frames A-B")
     ap.add_argument("--loop-tracked", action="store_true",
                     help="the tracked loop's seed sweep")
     ap.add_argument("--seeds", type=int, default=8)
-    ap.add_argument("--circle", default=None, metavar="N:EASE",
-                    help="sweep the loop bench's circle at N frames and "
-                         "this speed profile instead")
-    ap.add_argument("--tracked-frames", type=int, default=TRACKED_FRAMES,
-                    help="the tracked loop's circle at this many frames")
-    ap.add_argument("--stop-at-fail", action="store_true",
-                    help="end the sweep at the first seed that fails")
+    ap.add_argument("--full-width", action="store_true",
+                    help="the sweep at the loop bench's configuration")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--record", default=RECORD)
     args = ap.parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
     if args.loop_tracked:
         return sweep_main(args, device)
+    if args.tracked:
+        return tracked_main(args, device)
     rec = load_record(args.record)
     prefix = "loop.B" if args.closer else "loop.A"
     cfg = corridor.loop_bench_config()

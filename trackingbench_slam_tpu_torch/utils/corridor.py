@@ -116,13 +116,14 @@ def tracked_loop_config() -> PipelineConfig:
         local_ba_every=0, lk_track_levels=3)
 
 
-def tracked_loop_frames(cfg: PipelineConfig, n: int = 48):
+def tracked_loop_frames(cfg: PipelineConfig, n: int = 48,
+                        baseline: float = TRACKED_BASELINE):
     """That test's closed circle (tests/test_loop_online.py:60-80, 48
     frames) at n frames: a 1 m circle in an 8 m wide corridor, float32
-    images as rendered, a stereo pair on frame 0 and on keyframes. Returns
-    (frames, gt)."""
+    images as rendered, a stereo pair on frame 0 and on keyframes (at
+    `cfg`'s camera, whose bf is fx * `baseline`). Returns (frames, gt)."""
     frames, gt, _ = _render(cfg, loop_trajectory(n, radius=1.0),
-                            TRACKED_BASELINE, width=8.0, u8=False)
+                            baseline, width=8.0, u8=False)
     return frames, gt
 
 
