@@ -50,17 +50,18 @@ runs before the first torch.profiler session of the process (PHASES):
      hashing to the JAX record's (trackingbench_slam_tpu_torch/records/
      jax_full_width.npz, parity.py); a vocabulary trained on the card's
      ORB descriptors of every 12th left image; run A without a LoopCloser
-     twice, whose per-frame poses must be torch.equal, and run B with it,
-     in which every counter must move; then run C without the closer on
+     twice, whose per-frame poses must be torch.equal, and run B with it
+     over the first 48 frames, in which every counter must move; then run
+     C without the closer on
      the record's RANSAC draws (run A's) and run D with the closer on the
      record's vocabulary and run B's draws. Each of A-D is held to its JAX
      run frame by frame (first frame > 1 cm from JAX, lost frames,
      keyframe and BA frames, loops and relocalizations, closing errors); C
      and D must hold: until the first frame at which either package flags
      lost, keyframe and BA frames equal to the record's and positions
-     within 1 cm of it. Run B's closing error is printed, not gated: both
-     packages lose frames 36-45 of this circle and what follows is
-     amplified rounding (the record's own run B ends 316,097 m off).
+     within 1 cm of it. Run B's error at its last frame is printed, not
+     gated: both packages lose frames 36-45 of this circle and what follows
+     is amplified rounding (the record's own run B ends 316,097 m off).
      Then the tracked loop (utils/corridor.py tracked_loop_config: the JAX
      package's own loop test's circle at 512x384, at 72 frames
      (parity.TRACKED_FRAMES), which both packages track without losing a
@@ -74,7 +75,16 @@ runs before the first torch.profiler session of the process (PHASES):
      vocabulary, with the closer at RANSAC seeds 0 and 1 and without it at
      seed 0: each closer run loses no frame, closes the revisit loop (in
      the last 10 frames) and ends < 0.05 m from the start and >= 5 mm
-     below the closer-less run; every counter moves in every run;
+     below the closer-less run. Then the full-width loop (the record's
+     part loop_full: that circle at the loop bench's configuration,
+     windowed BA on every 2nd keyframe, in a corridor wide enough that the
+     JAX package tracks and closes it), its frames hashing to the
+     record's: run G with the closer on the record's vocabulary and draws,
+     held to the record at every frame as E is; run H on the port's own
+     draws and the card's vocabulary, gated as F is, its last loop on a
+     keyframe of the circle's first 10 frames. In every run of E-H every
+     loop matched a keyframe whose true view overlaps the query's
+     (parity.loop_views) and every counter moves;
   10. direct: DirectVO at bench.py's camera and features on the direct
      pyramid (5 levels x0.8), 24 corridor frames, stereo on the first only:
      ATE < 0.05 m, > 40 tracked, > 50 promoted seeds, LK and FAST launched;
@@ -186,6 +196,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 N_FRAMES = 40
 LOOP_FRAMES = 96
+# run B, printed and not gated, runs the loop bench's first 48 frames: the
+# circle is lost from frame 36 in both packages and what follows is
+# amplified rounding (PERF.md), so its tail only cost time
+LOOP_B_FRAMES = 48
 WARM_FRAMES = 11
 WARM_DIRECT = 4
 WARM_MONO = 4
@@ -203,6 +217,9 @@ BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
 TPU_LOOP_ACCURACY = dict(without_closer_m=0.7764, with_closer_m=0.0085,
                          loops_closed=2)
 F_SEEDS = (0, 1)        # RANSAC generator seeds of the tracked loop's run F
+# processes of the pool that renders the corridor sequences (started with
+# the build, so that its start-up overlaps nvcc's)
+RENDER_PROCESSES = min(os.cpu_count() or 1, 8)
 ATTRIBUTION_CALLS = 5   # eager calls of each kernel case under the profiler
 ATTRIBUTION_TOL = 0.25  # profiler device time a call against CUDA events
 # main()'s phases in the order it runs them. "timed" phases take figures on
@@ -784,8 +801,9 @@ def loop_bench(cfg, frames, gt, counters, device, rec):
             ("recorded_with_closer", rec_voc, "loop.B",
              parity.RecordedDraws(rec, "loop.B"))):
         with_lc = run_voc is not None
+        n = LOOP_B_FRAMES if key == "with_closer" else len(frames)
         vo = parity.loop_bench_tracker(cfg, device, run_voc)
-        # where the closer's host time goes, over all 96 frames
+        # where the closer's host time goes, over all the run's frames
         spent, _ = time_methods(vo, ["_track_keyframe_with_loop",
                                      "_finish_loop_detect", "_close_loop",
                                      "_relocalize"] if with_lc else [])
@@ -795,13 +813,14 @@ def loop_bench(cfg, frames, gt, counters, device, rec):
             spent.update(closer_spent)
         rows = parity.StereoRows()
         t0 = time.perf_counter()
-        fps, launches, lost = drive(vo, frames, counters, rows, draws)
+        fps, launches, lost = drive(vo, frames[:n], counters, rows, draws)
         wall = time.perf_counter() - t0
         if key.startswith("without_closer"):
             trajectories.append(torch.stack(vo.trajectory))
         arrays = rows.arrays(vo)
         out[key] = dict(
-            fps=fps, closing_err_m=closing_error(arrays["poses"], gt),
+            frames=n, fps=fps,
+            closing_err_m=closing_error(arrays["poses"], gt[:n]),
             loops_closed=len(vo.loop_events), loop_events=vo.loop_events,
             reloc_events=vo.reloc_events, lost_frames=lost,
             ba_calls=vo.ba_calls, launches=launches, run_s=wall,
@@ -830,43 +849,34 @@ def loop_bench(cfg, frames, gt, counters, device, rec):
     return out
 
 
-def tracked_loop(counters, device, rec):
-    """The tracked loop (utils/corridor.py tracked_loop_config: the JAX
-    package's own loop test's circle at parity.TRACKED_FRAMES frames,
-    which both packages track without losing a frame): run E with the
-    closer on the record's vocabulary and draws, held to the record at
-    every frame (parity.compare_stereo, held_every_frame); run E48 the
-    same on the loop test's own 48 frames (part loop_tracked48), held
-    while the record rests on >= parity.WELL_POSED_INLIERS pose inliers
-    (compare_stereo's `held`: at keyframe 29, on 21, F-RANSAC's inlier
-    set turns on rounding, PERF.md); run F on the port's own draws and a
-    vocabulary trained here, with the closer at RANSAC seeds F_SEEDS and
-    without it at the first, each closer run gated by
-    parity.tracked_loop_gate against the closer-less one."""
+def closed_loops(counters, device, rec, parts, own):
+    """Runs around closed circles of the record (parity.part_frames), each
+    loop held to ground truth (parity.loop_views): for each (key, part) of
+    `parts` the part's run with the closer on the record's vocabulary and
+    draws, held to the record (parity.compare_stereo, held_every_frame);
+    on the first part's circle, runs on the port's own draws and a
+    vocabulary trained here: `own`_without closer-less at RANSAC seed
+    F_SEEDS[0] and `own`_seed<s> with the closer at each of F_SEEDS, each
+    gated by parity.tracked_loop_gate against the closer-less one."""
     from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     t0 = time.perf_counter()
-    cfg, frames, gt = parity.sweep_frames()
-    _, frames48, gt48 = parity.sweep_frames(48)
+    circles = {key: parity.part_frames(rec, part) for key, part in parts}
+    cfg, frames, gt, _ = circles[parts[0][0]]
     out = dict(frames=len(frames),
                size=f"{cfg.camera.width}x{cfg.camera.height}",
                render_s=time.perf_counter() - t0)
-    record_frames_agree(rec, "loop_tracked", frames)
-    record_frames_agree(rec, "loop_tracked48", frames48)
     t0 = time.perf_counter()
     voc, n_desc = train_vocabulary(cfg, frames, device,
                                    every=parity.VOC_EVERY["loop_tracked"])
     out["vocabulary"] = dict(descriptors=n_desc, words=voc.num_words,
                              seconds=time.perf_counter() - t0)
     runs = [(key, parity.record_vocabulary(rec, f"{part}.voc", device),
-             None, f"{part}.closer", fr, g)
-            for key, part, fr, g in (("E", "loop_tracked", frames, gt),
-                                     ("E48", "loop_tracked48", frames48,
-                                      gt48))]
-    runs += [("F_without", None, F_SEEDS[0], None, frames, gt)]
-    runs += [(f"F_seed{s}", voc, s, None, frames, gt) for s in F_SEEDS]
-    for key, run_voc, seed, prefix, run_frames, run_gt in runs:
+             None, *circles[key][1:]) for key, part in parts]
+    runs += [(f"{own}_without", None, F_SEEDS[0], frames, gt, None)]
+    runs += [(f"{own}_seed{s}", voc, s, frames, gt, None) for s in F_SEEDS]
+    for key, run_voc, seed, run_frames, run_gt, prefix in runs:
         vo = parity.loop_bench_tracker(cfg, device, run_voc, seed)
         rows = parity.StereoRows()
         draws = prefix and parity.RecordedDraws(rec, prefix)
@@ -879,7 +889,10 @@ def tracked_loop(counters, device, rec):
             loops=list(vo.loop_events), relocs=list(vo.reloc_events),
             lost=np.flatnonzero(arrays["lost"]).tolist(),
             min_inliers=int(arrays["inliers"][1:].min()),
-            ba_calls=vo.ba_calls, launches=launches)
+            ba_frames=np.flatnonzero(arrays["ba"]).tolist(),
+            ba_calls=vo.ba_calls, launches=launches,
+            loop_views=parity.loop_views(run_gt, vo.loop_matches,
+                                         parity.hfov(cfg)))
         if draws:
             par = parity.compare_stereo(rec, prefix, arrays)
             par["held_every_frame"] = parity.held_every_frame(par)
@@ -887,9 +900,74 @@ def tracked_loop(counters, device, rec):
             out[key].update(parity=par, draws_used=draws.used,
                             draws_missing=draws.missing)
     for s in F_SEEDS:
-        out[f"F_seed{s}"]["gate"] = parity.tracked_loop_gate(
-            out[f"F_seed{s}"], out["F_without"], len(frames))
+        out[f"{own}_seed{s}"]["gate"] = parity.tracked_loop_gate(
+            out[f"{own}_seed{s}"], out[f"{own}_without"], len(frames))
     return out
+
+
+def closed_loops_checked(name, out, held, own, log, from_start=False):
+    """Logs closed_loops' runs and raises unless each run held to the
+    record is held as `held` asks ({key: "every frame" or "well posed"}),
+    every run launched every kernel and matched keyframes whose true views
+    overlap its queries', and each closer run on the port's own draws
+    passes its gate and, with `from_start`, closed its last loop on a
+    keyframe of the circle's start (parity.revisits_start)."""
+    from trackingbench_slam_tpu_torch import parity
+    for key in held:
+        e = out[key]
+        par = e["parity"]
+        log(f"[{name} {key}] {par['frames']} frames, the record's "
+            f"vocabulary and draws ({e['draws_used']} used, "
+            f"{e['draws_missing']} missing): max distance from JAX "
+            f"{par['max_diff_m']:.5f} m (first frame > 1 cm "
+            f"{par['first_parting']}; {par['max_diff_well_posed_m']:.5f} m "
+            f"over the {par['well_posed_frames']} frames before the record's"
+            f" first below {parity.WELL_POSED_INLIERS} inliers), keyframes "
+            f"equal {par['keyframes_equal']}, BA equal {par['ba_equal']}, "
+            f"loops port {par['loops_port']} jax {par['loops_jax']}, matched "
+            f"nodes port {par['loop_nodes_port']} jax "
+            f"{par['loop_nodes_jax']}, relocalizations port "
+            f"{par['relocs_port']} jax {par['relocs_jax']}, lost port "
+            f"{par['lost_port']} jax {par['lost_jax']}; closing error port "
+            f"{par['closing_err_port_m']:.4f} m jax "
+            f"{par['closing_err_jax_m']:.4f} m; min inliers "
+            f"{e['min_inliers']}, BA at {e['ba_frames']}; {e['fps']:.2f} "
+            f"frames/s; held at every frame {par['held_every_frame']}, while "
+            f"well posed {par['held']}; loops against ground truth "
+            f"{e['loop_views']}")
+    for key in [f"{own}_without"] + [f"{own}_seed{s}" for s in F_SEEDS]:
+        f = out[key]
+        log(f"[{name} {key}] seed {f['seed']}, "
+            f"{'with' if 'gate' in f else 'without'} the closer: closing "
+            f"error {f['closing_err_m']:.4f} m, loops {f['loops']}, "
+            f"relocalizations {f['relocs']}, lost {f['lost']}, min inliers "
+            f"{f['min_inliers']}, BA at {f['ba_frames']}, {f['fps']:.2f} "
+            f"frames/s, launches {f['launches']}; loops against ground "
+            f"truth {f['loop_views']}"
+            + (f"; gate {f['gate']}" if "gate" in f else ""))
+    for key, how in held.items():
+        par = out[key]["parity"]
+        if not par["held_every_frame" if how == "every frame" else "held"]:
+            raise AssertionError(f"{name} {key}: not held to the JAX record "
+                                 f"at {how}: {par}")
+    keys = list(held) + [f"{own}_without"] + [f"{own}_seed{s}"
+                                              for s in F_SEEDS]
+    for key in keys:
+        missing = [k for k, v in out[key]["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"{name} {key}: kernels not launched: "
+                                 f"{missing}")
+        false = [v for v in out[key]["loop_views"] if not v["overlap"]]
+        if false:
+            raise AssertionError(f"{name} {key}: loops whose views do not "
+                                 f"overlap in ground truth: {false}")
+    failed = [s for s in F_SEEDS if not out[f"{own}_seed{s}"]["gate"][
+        "passed"] or (from_start and not parity.revisits_start(
+            [(v["query"], v["match"]) for v in out[f"{own}_seed{s}"][
+                "loop_views"]]))]
+    if failed:
+        raise AssertionError(f"{name} {own} failed its gates at seeds "
+                             f"{failed}: {out}")
 
 
 def record_frames_agree(rec, name, frames):
@@ -2283,6 +2361,14 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import trackingbench_slam_tpu_torch  # noqa: F401  (precision pins)
+    from trackingbench_slam_tpu_torch.utils.corridor import render_pool
+    with render_pool(RENDER_PROCESSES):
+        return run(here)
+
+
+def run(here):
+    """main()'s phases, with the render pool in force."""
+    import torch
     from trackingbench_slam_tpu_torch import parity
     from trackingbench_slam_tpu_torch.bench import hand_kernel_counters
     from trackingbench_slam_tpu_torch.kernel_bench import kernel_inputs
@@ -2458,8 +2544,9 @@ def main():
         f"{loop['vocabulary']['words']} words from "
         f"{loop['vocabulary']['descriptors']} descriptors; without the "
         f"closer {wo['fps']:.2f} frames/s, closing error "
-        f"{wo['closing_err_m']:.4f} m; with it {wi['fps']:.2f} frames/s, "
-        f"closing error {wi['closing_err_m']:.4f} m, loops closed "
+        f"{wo['closing_err_m']:.4f} m; with it over the first "
+        f"{wi['frames']} frames {wi['fps']:.2f} frames/s, error at its last "
+        f"frame {wi['closing_err_m']:.4f} m, loops closed "
         f"{wi['loops_closed']} at frames {wi['loop_events']}, "
         f"relocalizations {wi['reloc_events']}, lost after frames "
         f"{wi['lost_frames']} (without: {wo['lost_frames']}), launches "
@@ -2494,8 +2581,9 @@ def main():
             f"port {par['lost_port']} jax {par['lost_jax']}; loops port "
             f"{par['loops_port']} jax {par['loops_jax']}; relocalizations "
             f"port {par['relocs_port']} jax {par['relocs_jax']}; closing "
-            f"error port {par['closing_err_port_m']:.4f} m jax "
-            f"{par['closing_err_jax_m']:.4f} m; held {par['held']}")
+            f"error port {par['closing_err_port_m']:.4f} m (at frame "
+            f"{fig['frames'] - 1}) jax {par['closing_err_jax_m']:.4f} m; "
+            f"held {par['held']}")
     for key in ("recorded_without_closer", "recorded_with_closer"):
         if not loop[key]["parity"]["held"]:
             raise AssertionError(f"loop bench {key}: not held to the JAX "
@@ -2513,18 +2601,21 @@ def main():
     missing = [k for k, v in wi["launches"].items() if v == 0]
     if missing:
         raise AssertionError(f"loop bench: kernels not launched: {missing}")
-    # run B's closing error is not gated: after the frames both packages
-    # lose at 36-45 its outcome is amplified rounding, which a RANSAC seed
-    # moves from 0.0168 m to 253 m (PERF.md) and with which the JAX
-    # record's own run B ends far off; the tracked loop below gates the
-    # closer instead
-    log(f"[loop bench B] not gated: closing error {wi['closing_err_m']:.4f} "
-        f"m, loops {wi['loop_events']} (the JAX record's run B: "
+    # run B is not gated: after the frames both packages lose at 36-45 its
+    # outcome is amplified rounding, which a RANSAC seed moved from 0.0168
+    # m to 253 m at the circle's end (PERF.md) and with which the JAX
+    # record's own run B ends far off; the tracked and full-width loops
+    # below gate the closer instead
+    log(f"[loop bench B] not gated: {wi['frames']} frames, error at the "
+        f"last {wi['closing_err_m']:.4f} m, loops {wi['loop_events']} "
+        f"(the JAX record's run B over 96 frames: "
         f"{float(rec['loop.B.closing_err_m']):.1f} m, loops "
         f"{rec['loop.B.loops'].tolist()}; the loop is lost at frames 36-45 "
         f"in both packages)")
     t0 = time.perf_counter()
-    tracked = tracked_loop(counters, dev, rec)
+    tracked = closed_loops(counters, dev, rec, [("E", "loop_tracked"),
+                                               ("E48", "loop_tracked48")],
+                           "F")
     tracked["seconds"] = time.perf_counter() - t0
     loop["tracked"] = tracked
     log(f"[loop tracked] {tracked['frames']} frames {tracked['size']} of "
@@ -2533,50 +2624,21 @@ def main():
         f"{tracked['vocabulary']['words']} words from "
         f"{tracked['vocabulary']['descriptors']} descriptors; "
         f"{tracked['seconds']:.1f} s in all")
-    for key in ("E", "E48"):
-        e = tracked[key]
-        par = e["parity"]
-        log(f"[loop tracked {key}] {par['frames']} frames, the record's "
-            f"vocabulary and draws ({e['draws_used']} used, "
-            f"{e['draws_missing']} missing): max distance from JAX "
-            f"{par['max_diff_m']:.5f} m (first frame > 1 cm "
-            f"{par['first_parting']}; {par['max_diff_well_posed_m']:.5f} m "
-            f"over the {par['well_posed_frames']} frames before the record's"
-            f" first below {parity.WELL_POSED_INLIERS} inliers), keyframes "
-            f"equal {par['keyframes_equal']}, BA equal {par['ba_equal']}, "
-            f"loops port {par['loops_port']} jax {par['loops_jax']}, "
-            f"relocalizations port {par['relocs_port']} jax "
-            f"{par['relocs_jax']}, lost port {par['lost_port']} jax "
-            f"{par['lost_jax']}; closing error port "
-            f"{par['closing_err_port_m']:.4f} m jax "
-            f"{par['closing_err_jax_m']:.4f} m; {e['fps']:.2f} frames/s; "
-            f"held at every frame {par['held_every_frame']}, while well "
-            f"posed {par['held']}")
-    for key in ["F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
-        f = tracked[key]
-        log(f"[loop tracked {key}] seed {f['seed']}, "
-            f"{'with' if 'gate' in f else 'without'} the closer: closing "
-            f"error {f['closing_err_m']:.4f} m, loops {f['loops']}, "
-            f"relocalizations {f['relocs']}, lost {f['lost']}, min inliers "
-            f"{f['min_inliers']}, {f['fps']:.2f} frames/s, launches "
-            f"{f['launches']}" + (f"; gate {f['gate']}" if "gate" in f
-                                  else ""))
-    if not tracked["E"]["parity"]["held_every_frame"]:
-        raise AssertionError(f"loop tracked E: not held to the JAX record: "
-                             f"{tracked['E']['parity']}")
-    if not tracked["E48"]["parity"]["held"]:
-        raise AssertionError(f"loop tracked E48: not held to the JAX record "
-                             f"while well posed: {tracked['E48']['parity']}")
-    for key in ["E", "E48", "F_without"] + [f"F_seed{s}" for s in F_SEEDS]:
-        missing = [k for k, v in tracked[key]["launches"].items() if v == 0]
-        if missing:
-            raise AssertionError(f"loop tracked {key}: kernels not launched:"
-                                 f" {missing}")
-    failed = [s for s in F_SEEDS if not tracked[f"F_seed{s}"]["gate"][
-        "passed"]]
-    if failed:
-        raise AssertionError(f"loop tracked F failed its gates at seeds "
-                             f"{failed}: {tracked}")
+    closed_loops_checked("loop tracked", tracked, {
+        "E": "every frame", "E48": "well posed"}, "F", log)
+    t0 = time.perf_counter()
+    full = closed_loops(counters, dev, rec, [("G", "loop_full")], "H")
+    full["seconds"] = time.perf_counter() - t0
+    loop["full"] = full
+    width, radius, ease = rec["loop_full.scene"].tolist()
+    log(f"[loop full] {full['frames']} frames {full['size']} of the tracked "
+        f"circle in a {width} m corridor (radius {radius} m, ease {ease}), "
+        f"windowed BA on, rendered in {full['render_s']:.1f} s; vocabulary "
+        f"of {full['vocabulary']['words']} words from "
+        f"{full['vocabulary']['descriptors']} descriptors; "
+        f"{full['seconds']:.1f} s in all")
+    closed_loops_checked("loop full", full, {"G": "every frame"}, "H", log,
+                         from_start=True)
 
     phases.enter("direct")
     direct, seed_case, direct_stages = direct_phase(counters, dev, rec)
@@ -2954,6 +3016,9 @@ def main():
              **{f"loop_tracked_{k}": loop["tracked"][k]["launches"]
                 for k in ["E", "E48", "F_without"]
                 + [f"F_seed{s}" for s in F_SEEDS]},
+             **{f"loop_full_{k}": loop["full"][k]["launches"]
+                for k in ["G", "H_without"]
+                + [f"H_seed{s}" for s in F_SEEDS]},
              "direct": direct["launches"],
              **{f"indirect_{s}": fig["launches"]
                 for s, fig in indirect.items()

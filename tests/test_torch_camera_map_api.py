@@ -252,6 +252,55 @@ def test_plane_renderer_matches_reference():
         np.testing.assert_array_equal(t.depth_map(T), j.depth_map(T))
 
 
+@pytest.mark.parametrize("width,radius", [(8.0, 1.0), (16.0, 1.0)])
+def test_corridor_renderer_matches_reference(width, radius):
+    """The port's CorridorScene, which samples each plane's texture only
+    at the pixels that plane takes, renders the reference's frames and
+    depth maps bit for bit: around a closed circle (every wall, the back
+    and end walls, floor and ceiling in view) and down the corridor."""
+    kw = dict(width=160, height=96, fx=92.0, fy=92.0, cx=78.5, cy=47.0,
+              bf=92.0 * 0.54)
+    t = t_syn.CorridorScene(t_config.CameraConfig(**kw), width=width,
+                            height=5.0)
+    j = j_syn.CorridorScene(j_config.CameraConfig(**kw), width=width,
+                            height=5.0)
+    poses = list(j_syn.loop_trajectory(8, radius=radius))
+    poses += list(j_syn.forward_yaw_trajectory(2))
+    for T in poses:
+        for a, b in zip(t.stereo_pair(T, 0.54), j.stereo_pair(T, 0.54)):
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(t.depth_map(T), j.depth_map(T))
+
+
+def test_render_pool_renders_the_same_frames():
+    """Inside corridor.render_pool, each corridor sequence renders on two
+    spawned processes, a run of frames each, frame for frame as in-process
+    (right images where each sequence has them)."""
+    from trackingbench_slam_tpu_torch.utils import corridor
+    cam = t_config.CameraConfig(width=160, height=96, fx=92.0, fy=92.0,
+                                cx=78.5, cy=47.0, bf=92.0 * 0.54)
+    cfg = dataclasses.replace(corridor.tracked_loop_config(), camera=cam)
+    runs = (lambda: corridor.corridor_frames(cfg, 5)[0],
+            lambda: corridor.tracked_loop_frames(cfg, 7)[0],
+            lambda: corridor.direct_frames(cfg, 4)[0],
+            lambda: corridor.indirect_frames(cfg, 3)[0],
+            lambda: [(f, None) for f in corridor.mono_frames(cfg, 4)[0]])
+    alone = [run() for run in runs]
+    with corridor.render_pool(2):
+        pooled = [run() for run in runs]
+    for a, b in zip(alone, pooled):
+        assert len(a) == len(b)
+        for (la, ra), (lb, rb) in zip(a, b):
+            assert la.dtype == lb.dtype and (ra is None) == (rb is None)
+            np.testing.assert_array_equal(la, lb)
+            if ra is not None:
+                np.testing.assert_array_equal(ra, rb)
+    # a right image on frame 0 and on each keyframe (every 3rd frame)
+    assert [r is None for _, r in alone[0]] == [False, True, False, True,
+                                                True]
+
+
 def test_kitti_stereo_config_matches_reference():
     assert (dataclasses.asdict(t_config.kitti_stereo_config())
             == dataclasses.asdict(j_config.kitti_stereo_config()))

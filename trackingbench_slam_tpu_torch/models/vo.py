@@ -375,6 +375,10 @@ class StereoVO:
         self.lost = False
         self.reloc_events: list = []
         self.loop_events: list = []
+        # per closed loop: (the querying keyframe's trajectory node, the
+        # matched keyframe's node, the measured (4, 4) pose of the query
+        # relative to the match)
+        self.loop_matches: list = []
         self.ba_calls = 0
         # trajectory index per LoopCloser ring slot
         self._kf_traj_idx: dict = {}
@@ -493,10 +497,11 @@ class StereoVO:
         cur_index = len(self.trajectory)   # this frame's (future) node
         T_all = torch.cat([torch.stack(self.trajectory),
                            self.state.T_cw[None]]).cpu().numpy()
+        matched = self._kf_traj_idx[loop.kf_index]
         T_opt, _ = self.loop_closer.correct_trajectory(
-            T_all, loop, cur_index=cur_index,
-            loop_frame_index=self._kf_traj_idx[loop.kf_index],
+            T_all, loop, cur_index=cur_index, loop_frame_index=matched,
             edge_index=edge_node, device=self.device)
+        self.loop_matches.append((edge_node, matched, loop.T_cur_kf))
         # padded to a multiple of 64 frames with the last pose repeated
         F = len(T_opt)
         T_pad = np.tile(T_opt[-1][None], (-(-F // 64) * 64, 1, 1))

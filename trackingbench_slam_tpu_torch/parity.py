@@ -26,28 +26,35 @@ columns beside the port's (with --counts, the stage counts after it), then
 the report as one JSON line.
 
     python -m trackingbench_slam_tpu_torch.parity --tracked [PART]
-        [--carried A:B] [--cpu]
+        [--counts] [--carried A:B] [--cpu]
 
-is run E: the tracked loop (part loop_tracked, or loop_tracked48: the
-JAX loop test's own 48 frames) with bench.py's LoopCloser on the record's
-vocabulary and draws, a line a frame and the report, held at every frame
-(`held_every_frame`) or while well posed (`held`); with `--carried A:B`
-it prints before each frame from A to B `carried_on_cpu`: the frame
-stepped from the tracker's state on the card and on a CPU copy, stage by
-stage.
+runs a record part of a tracked circle on the record's draws (and its
+vocabulary, with bench.py's LoopCloser, where the part ran with it): run
+E, the tracked loop (part loop_tracked, or loop_tracked48: the JAX loop
+test's own 48 frames); run G, the full-width loop (loop_full); or its
+circle at full width closer-less (tracked_full48, tracked_full72, where
+JAX is lost). A line a frame and the report, held at every frame
+(`held_every_frame`) or while well posed (`held`); with `--counts` the
+stage counts beside the part's where it keeps them (`counts_apart`);
+with `--carried A:B` it prints before each frame from A to B
+`carried_on_cpu`: the frame stepped from the tracker's state on the card
+and on a CPU copy, stage by stage.
 
     python -m trackingbench_slam_tpu_torch.parity --loop-tracked
-        [--seeds 8] [--frames N] [--full-width] [--cpu]
+        [--seeds 8] [--frames N] [--full-width] [--scenes N:W:R:E,...]
+        [--cpu]
 
 is the tracked loop's seed sweep (the JAX package's own loop test's
 configuration and circle at TRACKED_FRAMES frames, or N, utils/corridor.py
 `tracked_loop_config`, which both packages track without losing a frame;
-with `--full-width` its circle at the loop bench's configuration): for
-each RANSAC generator seed the loop without and with bench.py's
-LoopCloser (on a vocabulary trained from the port's ORB), a line per seed
-(loops, relocalizations, lost frames, both closing errors and their
-margin, whether it passes `tracked_loop_gate`), then a JSON line; it
-exits 1 if a seed fails.
+with `--full-width` the full-width loop instead: FULL_LOOP_FRAMES frames
+of the circle in a FULL_LOOP_SCENE corridor at the loop bench's
+configuration; with `--scenes` each listed circle in turn): for each
+RANSAC generator seed the loop without and with bench.py's LoopCloser (on
+a vocabulary trained from the port's ORB), a line per seed (loops,
+relocalizations, lost frames, both closing errors and their margin,
+whether it passes `tracked_loop_gate` and `loop_qualifies`), then a JSON
+line; it exits 1 if a seed fails the gate.
 """
 
 from __future__ import annotations
@@ -88,7 +95,23 @@ VOC_EVERY = {"loop": 12, "loop_tracked": 4}
 # closer-less run at every seed; 72 keep >= 57 inliers and pass at every
 # seed (PERF.md)
 TRACKED_FRAMES = 72
+# the tracked circle's scene: corridor width (m), circle radius (m), ease
+TRACKED_SCENE = (8.0, 1.0, 0.75)
+# the full-width loop: the tracked circle at the loop bench's
+# configuration in a wider corridor, the shortest of the screened circles
+# that the JAX package tracks and closes and the port passes at every seed
+# (PERF.md); frames and scene as sweep_frames takes them
+FULL_LOOP_FRAMES = 60
+FULL_LOOP_SCENE = (20.0, 1.0, 0.75)
+# a closed loop's query and match overlap when their true optical axes
+# are apart by less than the horizontal field of view and their true
+# centres by less than this (the circles' radius)
+LOOP_CENTRE_M = 1.0
 REVISIT_FRAMES = 10      # the revisit loop closes within the last 10 frames
+# the largest stage-count difference from the record that the loop bench's
+# keyframes show on the card where every stage agrees on the same inputs
+# (PERF.md): rounding
+COUNTS_ROUNDING = 6
 CLOSER_MARGIN_M = 0.005  # and ends >= 5 mm below the closer-less run
 
 
@@ -257,13 +280,18 @@ def compare_stereo(rec: dict, prefix: str, rows: dict) -> dict:
         loops_jax=rec[f"{prefix}.loops"].tolist(),
         relocs_port=[int(x) for x in rows.get("relocs", [])],
         relocs_jax=rec[f"{prefix}.relocs"].tolist(),
+        loop_nodes_port=[[int(q), int(m)] for q, m, _ in
+                         rows.get("loop_matches", [])],
+        loop_nodes_jax=(rec[f"{prefix}.loop_nodes"].tolist()
+                        if f"{prefix}.loop_nodes" in rec else None),
         closing_err_jax_m=float(rec[f"{prefix}.closing_err_m"]),
         frames_jax=len(rec[f"{prefix}.T_cw"]))
     if "poses" in rows:
+        # a run of the record's first frames: the error at its last frame
         from trackingbench_slam_tpu_torch.utils.corridor import closing_error
-        out["closing_err_port_m"] = closing_error(
-            rows["poses"], rec[f"{prefix.split('.')[0]}.gt"].astype(
-                np.float64))
+        gt = rec[f"{prefix.split('.')[0]}.gt"].astype(np.float64)
+        out["closing_err_port_m"] = closing_error(rows["poses"],
+                                                  gt[:len(rows["poses"])])
     out["held"] = bool(same["keyframe"] and same["ba"]
                        and out["max_diff_well_posed_m"] <= POSITION_TOL_M)
     return out
@@ -272,12 +300,14 @@ def compare_stereo(rec: dict, prefix: str, rows: dict) -> dict:
 def held_every_frame(report: dict) -> bool:
     """A compare_stereo report held at every frame of the record (the
     tracked loop's gate): no frame more than POSITION_TOL_M from JAX, the
-    same keyframe, BA, loop and relocalization frames, no frame lost in
+    same keyframe, BA, loop and relocalization frames, each loop matching
+    the same keyframe where the record keeps them, no frame lost in
     either package."""
     r = report
     return bool(r["frames"] == r["frames_jax"] and r["first_parting"] is None
                 and r["keyframes_equal"] and r["ba_equal"]
                 and r["loops_port"] == r["loops_jax"]
+                and r["loop_nodes_jax"] in (None, r["loop_nodes_port"])
                 and r["relocs_port"] == r["relocs_jax"]
                 and not r["lost_port"] and not r["lost_jax"])
 
@@ -315,7 +345,8 @@ class StereoRows:
         if vo is not None:
             out["poses"] = vo.poses()
             out.update(loops=list(vo.loop_events),
-                       relocs=list(vo.reloc_events))
+                       relocs=list(vo.reloc_events),
+                       loop_matches=list(vo.loop_matches))
         return out
 
 
@@ -481,8 +512,9 @@ def tracked_loop_gate(with_closer: dict, without: dict, frames: int) -> dict:
     """The tracked loop's gate on one seed (each dict: closing_err_m,
     loops, lost frames; `frames` the circle's length): no frame flagged
     lost in either run, the revisit loop closed (a loop at one of the last
-    REVISIT_FRAMES frames; both packages also close one at frame 21,
-    which no test holds to ground truth), a closing error below
+    REVISIT_FRAMES frames, whichever keyframe it matched: revisits_start
+    asks for the start; both packages also close one at frame 21 of the
+    tracked loop, a true match by loop_views), a closing error below
     CLOSING_TOL_M and at least CLOSER_MARGIN_M below the closer-less
     run's."""
     margin = without["closing_err_m"] - with_closer["closing_err_m"]
@@ -495,24 +527,151 @@ def tracked_loop_gate(with_closer: dict, without: dict, frames: int) -> dict:
     return dict(checks, margin_m=margin, passed=all(checks.values()))
 
 
-def sweep_frames(n: int = TRACKED_FRAMES, full_width: bool = False):
+def loop_views(gt: np.ndarray, matches, hfov_rad: float) -> list:
+    """Each closed loop held to ground truth: `matches` are (query node,
+    matched node, measured (4, 4) pose of the query relative to the match)
+    as StereoVO.loop_matches keeps them, `gt` the (F, 4, 4) world->camera
+    ground truth. Per loop, the true camera centres' distance and optical
+    axes' angle, whether the views overlap (axes apart by less than the
+    horizontal field of view `hfov_rad`, centres within LOOP_CENTRE_M),
+    and how far the measured relative pose is from the true one."""
+    gt = np.asarray(gt, np.float64)
+    out = []
+    for q, m, T_meas in matches:
+        q, m = int(q), int(m)
+        c = centres(gt[[q, m]])
+        axes = gt[[q, m], 2, :3]          # each camera's z axis in the world
+        angle = float(np.arccos(np.clip(axes[0] @ axes[1], -1.0, 1.0)))
+        dist = float(np.linalg.norm(c[0] - c[1]))
+        T_true = gt[q] @ np.linalg.inv(gt[m])
+        dt, drot = _pose_apart(np.asarray(T_meas, np.float64), T_true)
+        out.append(dict(query=q, match=m, centres_m=dist, axes_rad=angle,
+                        overlap=bool(angle < hfov_rad
+                                     and dist < LOOP_CENTRE_M),
+                        edge_err_m=dt, edge_err_rad=drot))
+    return out
+
+
+def revisits_start(matches) -> bool:
+    """Whether the last closed loop of `matches` (as StereoVO.loop_matches
+    keeps them) matched a keyframe of the circle's first REVISIT_FRAMES
+    frames: a revisit of the start, not of a recent keyframe."""
+    return bool(len(matches)) and int(matches[-1][1]) < REVISIT_FRAMES
+
+
+def record_loop_matches(rec: dict, prefix: str) -> list:
+    """A record run's closed loops as StereoVO.loop_matches keeps them."""
+    return [(q, m, T) for (q, m), T in zip(rec[f"{prefix}.loop_nodes"],
+                                           rec[f"{prefix}.loop_edges"])]
+
+
+def _pose_apart(T_a: np.ndarray, T_b: np.ndarray) -> tuple:
+    """(translation m, rotation rad) of T_b^-1 T_a."""
+    dT = np.linalg.inv(T_b) @ T_a
+    R = dT[:3, :3]
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return (float(np.linalg.norm(dT[:3, 3])),
+            float(np.arctan2(np.linalg.norm(w) / 2, (np.trace(R) - 1) / 2)))
+
+
+def hfov(cfg) -> float:
+    """The camera's horizontal field of view (rad)."""
+    c = cfg.camera
+    return float(np.arctan(c.cx / c.fx) + np.arctan((c.width - c.cx) / c.fx))
+
+
+def part_frames(rec: dict, part: str) -> tuple:
+    """(cfg, frames, gt, prefix) of a record part of a tracked circle:
+    loop_tracked and loop_tracked48 at tracked_loop_config, loop_full and
+    tracked_full<N> at the loop bench's configuration, each in the part's
+    scene (TRACKED_SCENE where it keeps none); `prefix` is its run with the
+    closer where it has one, else its closer-less run. Raises ValueError
+    if the frames rendered here do not hash to the record's."""
+    prefix = (f"{part}.closer" if f"{part}.closer.T_cw" in rec
+              else f"{part}.without")
+    scene = (tuple(float(x) for x in rec[f"{part}.scene"])
+             if f"{part}.scene" in rec else TRACKED_SCENE)
+    cfg, frames, gt = sweep_frames(len(rec[f"{prefix}.T_cw"]),
+                                   not part.startswith("loop_tracked"),
+                                   scene)
+    got = [frame_sha(frames[0]), frame_sha(frames[-1])]
+    if got != rec[f"{part}.frame_sha"].tolist():
+        raise ValueError(f"{part}: frames differ from the record's "
+                         f"(sha256 {got})")
+    return cfg, frames, gt, prefix
+
+
+def counts_apart(table: list, rec: dict, prefix: str) -> dict:
+    """A run's StageCounts table beside the record's counts of the same
+    frames (`{prefix}.counts`, columns `<part>.count_keys`, -1 where JAX's
+    frame took none): per frame the columns that differ, as (port, JAX),
+    and the first frame and the first keyframe at which a column differs
+    by more than COUNTS_ROUNDING."""
+    keys = rec[f"{prefix.split('.')[0]}.count_keys"].tolist()
+    jax_counts = rec[f"{prefix}.counts"]
+    keyframes = set(np.flatnonzero(rec[f"{prefix}.keyframe"]).tolist())
+    frames, first, first_kf = {}, None, None
+    for row in table:
+        i = row["frame"]
+        if i >= len(jax_counts):
+            break
+        apart = {k: (row[k], int(jax_counts[i, keys.index(k)]))
+                 for k in keys if k in row
+                 and row[k] != jax_counts[i, keys.index(k)]}
+        if apart:
+            frames[i] = apart
+        if any(abs(a - b) > COUNTS_ROUNDING for a, b in apart.values()):
+            first = i if first is None else first
+            if first_kf is None and i in keyframes:
+                first_kf = i
+    return dict(frames=frames, first_beyond_rounding=first,
+                first_keyframe_beyond_rounding=first_kf)
+
+
+def loop_qualifies(with_closer: dict, without: dict, frames: int) -> dict:
+    """tracked_loop_gate, and what a loop must also show to be held at
+    full width (the JAX package's runs, or the port's when screening):
+    every frame after the bootstrap on at least WELL_POSED_INLIERS pose
+    inliers in both runs (min_inliers), so that rounding cannot pick the
+    outcome, and windowed BA at least twice before the revisit loop
+    (ba_frames of the closer run)."""
+    gate = tracked_loop_gate(with_closer, without, frames)
+    revisit = [f for f in with_closer["loops"]
+               if f >= frames - REVISIT_FRAMES]
+    ba_before = sum(f < revisit[0] for f in with_closer["ba_frames"]
+                    ) if revisit else 0
+    checks = dict(
+        {k: v for k, v in gate.items() if k not in ("margin_m", "passed")},
+        well_posed=min(with_closer["min_inliers"],
+                       without["min_inliers"]) >= WELL_POSED_INLIERS,
+        ba_before_revisit=ba_before >= 2)
+    return dict(checks, margin_m=gate["margin_m"], ba_before=ba_before,
+                passed=all(checks.values()))
+
+
+def sweep_frames(n: int = TRACKED_FRAMES, full_width: bool = False,
+                 scene: tuple = TRACKED_SCENE):
     """(cfg, frames, gt) of the tracked loop at n frames (utils/corridor.py
     tracked_loop_config, tracked_loop_frames), or with `full_width` of its
     circle at the loop bench's configuration (loop_bench_config: 1226x370,
-    2000 features, windowed BA on every 2nd keyframe)."""
+    2000 features, windowed BA on every 2nd keyframe); `scene` is the
+    corridor's width, the circle's radius and its ease."""
     from trackingbench_slam_tpu_torch.utils import corridor
+    width, radius, ease = scene
     if full_width:
         cfg = corridor.loop_bench_config()
-        return (cfg, *corridor.tracked_loop_frames(cfg, n, corridor.BASELINE))
+        return (cfg, *corridor.tracked_loop_frames(
+            cfg, n, corridor.BASELINE, width, radius, ease))
     cfg = corridor.tracked_loop_config()
-    return (cfg, *corridor.tracked_loop_frames(cfg, n))
+    return (cfg, *corridor.tracked_loop_frames(
+        cfg, n, width=width, radius=radius, ease=ease))
 
 
 def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None) -> list:
     """The loop without and with bench.py's LoopCloser (on `voc`) for
     each RANSAC generator seed: a dict per seed with both runs' closing
-    errors, loops, relocalizations and lost frames, and the gate's
-    verdict (tracked_loop_gate)."""
+    errors, loops and their matched nodes, relocalizations and lost
+    frames, and the gate's verdict (tracked_loop_gate)."""
     from trackingbench_slam_tpu_torch.utils.corridor import closing_error
     out = []
     for seed in seeds:
@@ -524,10 +683,15 @@ def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None) -> list:
                 closing_err_m=closing_error(rows["poses"], gt),
                 loops=rows["loops"], relocs=rows["relocs"],
                 lost=np.flatnonzero(rows["lost"]).tolist(),
-                min_inliers=int(rows["inliers"][1:].min()))
+                min_inliers=int(rows["inliers"][1:].min()),
+                ba_frames=np.flatnonzero(rows["ba"]).tolist(),
+                loop_nodes=[[int(q), int(m)]
+                            for q, m, _ in rows["loop_matches"]])
         row = dict(seed=seed, without=runs["without"], closer=runs["with"],
                    **tracked_loop_gate(runs["with"], runs["without"],
                                        len(frames)))
+        row["qualifies"] = loop_qualifies(runs["with"], runs["without"],
+                                          len(frames))
         if log:
             log(sweep_line(row))
         out.append(row)
@@ -536,13 +700,16 @@ def seed_sweep(cfg, frames, gt, device, voc, seeds, log=None) -> list:
 
 def sweep_line(r: dict) -> str:
     w, c = r["without"], r["closer"]
-    return (f"seed {r['seed']}: closer loops {c['loops']} relocs "
+    return (f"seed {r['seed']}: closer loops {c['loops']} (query, matched "
+            f"nodes {c['loop_nodes']}) relocs "
             f"{c['relocs']} lost {c['lost']} closing error "
             f"{c['closing_err_m']:.4f} m (min inliers {c['min_inliers']}); "
             f"without loops lost {w['lost']} closing error "
             f"{w['closing_err_m']:.4f} m (min inliers {w['min_inliers']}); "
-            f"margin {r['margin_m']:.4f} m; "
-            f"{'pass' if r['passed'] else 'FAIL'}")
+            f"margin {r['margin_m']:.4f} m; BA before the revisit loop "
+            f"{r['qualifies']['ba_before']}; "
+            f"{'pass' if r['passed'] else 'FAIL'}"
+            f"{'' if r['qualifies']['passed'] else ' (does not qualify)'}")
 
 
 def frame_line(i: int, row: dict, rec: dict, prefix: str, gt) -> str:
@@ -669,20 +836,21 @@ def carried_on_cpu(vo, frame, uniform: torch.Tensor) -> dict:
 
 
 def tracked_main(args, device) -> int:
-    """--tracked: run E, the tracked loop with bench.py's LoopCloser on the
-    record's vocabulary and draws, a line a frame beside the record, then
-    the report (compare_stereo, held_every_frame); with --carried A:B,
-    before each frame from A to B carried_on_cpu's line."""
+    """--tracked PART: a record part of a tracked circle (part_frames) on
+    the record's draws, and with bench.py's LoopCloser on the record's
+    vocabulary where the part's run had it (run E, E48, G), a line a frame
+    beside the record, then the report (compare_stereo, held_every_frame;
+    with --counts the stage counts beside the record's, counts_apart);
+    with --carried A:B, before each frame from A to B carried_on_cpu's
+    line."""
     rec = load_record(args.record)
     part = args.tracked
-    prefix = f"{part}.closer"
-    n = len(rec[f"{prefix}.T_cw"])
-    cfg, frames, gt = sweep_frames(n)
-    if frame_sha(frames[-1]) != rec[f"{part}.frame_sha"][1]:
-        raise SystemExit("the tracked loop renders other frames than the "
-                         "record's")
-    frames = frames[:args.frames or n]
+    cfg, frames, gt, prefix = part_frames(rec, part)
+    frames = frames[:args.frames or len(frames)]
     draws = RecordedDraws(rec, prefix)
+    voc = (record_vocabulary(rec, f"{part}.voc", device)
+           if prefix.endswith(".closer") else None)
+    counts = StageCounts() if args.counts else None
     a, b = (map(int, args.carried.split(":")) if args.carried
             else (0, -1))
 
@@ -693,33 +861,71 @@ def tracked_main(args, device) -> int:
             print(json.dumps(dict(frame=i, carried=carried_on_cpu(
                 vo, frame, u))), flush=True)
     rows, _ = run_loop_bench(
-        cfg, frames, device, record_vocabulary(rec, f"{part}.voc", device),
-        draws,
+        cfg, frames, device, voc, draws,
         lambda i, r: print(frame_line(i, r, rec, prefix, gt), flush=True),
-        before_frame=carry)
+        counts=counts, before_frame=carry)
     report = compare_stereo(rec, prefix, rows)
-    report.update(run=f"E on {part}",
-                  held_every_frame=held_every_frame(report),
+    report.update(run=prefix, held_every_frame=held_every_frame(report),
                   draws_used=draws.used, draws_missing=draws.missing)
+    if counts:
+        report["counts"] = counts.table()
+        for row in report["counts"]:
+            print(counts_line(row), flush=True)
+        if f"{prefix}.counts" in rec:
+            report["counts_apart"] = counts_apart(report["counts"], rec,
+                                                  prefix)
     print(json.dumps(report))
     return 0
 
 
+def parse_scenes(text: str) -> list:
+    """"N:W:R:E,..." -> [(frames, (width, radius, ease))]."""
+    out = []
+    for item in text.split(","):
+        n, w, r, e = item.split(":")
+        out.append((int(n), (float(w), float(r), float(e))))
+    return out
+
+
 def sweep_main(args, device) -> int:
-    """--loop-tracked: the seed sweep, a line a seed, then the JSON."""
+    """--loop-tracked: the seed sweep, a line a seed, then the JSON; with
+    --scenes, the sweep of each listed circle in turn, a JSON line each;
+    frames render on os.cpu_count() processes (corridor.render_pool)."""
+    import time
     from trackingbench_slam_tpu_torch.repeat_check import train_vocabulary
-    n = args.frames or TRACKED_FRAMES
-    cfg, frames, gt = sweep_frames(n, args.full_width)
-    voc, n_desc = train_vocabulary(cfg, frames, device,
-                                   every=VOC_EVERY["loop_tracked"])
-    print(f"the tracked loop: {n} frames {cfg.camera.width}x"
-          f"{cfg.camera.height}; vocabulary of {voc.num_words} words from "
-          f"{n_desc} descriptors", flush=True)
-    rows = seed_sweep(cfg, frames, gt, device, voc, range(args.seeds),
-                      lambda m: print(m, flush=True))
-    print(json.dumps(dict(frames=n, full_width=args.full_width, seeds=rows,
-                          all_passed=all(r["passed"] for r in rows))))
-    return 0 if all(r["passed"] for r in rows) else 1
+    from trackingbench_slam_tpu_torch.utils import corridor
+    if args.scenes:
+        jobs = [(n, args.full_width, sc) for n, sc in
+                parse_scenes(args.scenes)]
+    elif args.full_width:
+        jobs = [(args.frames or FULL_LOOP_FRAMES, True, FULL_LOOP_SCENE)]
+    else:
+        jobs = [(args.frames or TRACKED_FRAMES, False, TRACKED_SCENE)]
+    ok = True
+    with corridor.render_pool(os.cpu_count() or 1):
+        for n, full_width, scene in jobs:
+            t0 = time.perf_counter()
+            cfg, frames, gt = sweep_frames(n, full_width, scene)
+            print(f"rendered in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            voc, n_desc = train_vocabulary(cfg, frames, device,
+                                           every=VOC_EVERY["loop_tracked"])
+            print(f"the tracked loop: {n} frames {cfg.camera.width}x"
+                  f"{cfg.camera.height}, corridor {scene[0]} m, radius "
+                  f"{scene[1]} m, ease {scene[2]}; vocabulary of "
+                  f"{voc.num_words} words from {n_desc} descriptors",
+                  flush=True)
+            rows = seed_sweep(cfg, frames, gt, device, voc,
+                              range(args.seeds),
+                              lambda m: print(m, flush=True))
+            passed = all(r["passed"] for r in rows)
+            ok = ok and passed
+            print(json.dumps(dict(
+                frames=n, full_width=full_width, scene=list(scene),
+                seeds=rows, all_passed=passed,
+                all_qualify=all(r["qualifies"]["passed"] for r in rows))),
+                flush=True)
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -738,8 +944,9 @@ def main(argv=None) -> int:
                     help="count each stage's survivors (StageCounts)")
     ap.add_argument("--tracked", nargs="?", const="loop_tracked",
                     default=None, metavar="PART",
-                    help="run E on the record's tracked loop (part "
-                         "loop_tracked or loop_tracked48)")
+                    help="a record part of a tracked circle on its draws: "
+                         "loop_tracked (run E), loop_tracked48, loop_full "
+                         "(run G), tracked_full48, tracked_full72")
     ap.add_argument("--carried", default=None, metavar="A:B",
                     help="with --tracked: carried_on_cpu at frames A-B")
     ap.add_argument("--loop-tracked", action="store_true",
@@ -747,6 +954,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--full-width", action="store_true",
                     help="the sweep at the loop bench's configuration")
+    ap.add_argument("--scenes", default=None, metavar="N:W:R:E,...",
+                    help="the sweep on each of these circles instead: N "
+                         "frames, a corridor W m wide, radius R m, ease E")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--record", default=RECORD)
     args = ap.parse_args(argv)

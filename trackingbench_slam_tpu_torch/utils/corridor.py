@@ -17,11 +17,17 @@ sequences, the JAX package's own gates at these widths.
 own loop test's configuration and circle (at 72 frames, parity.py
 TRACKED_FRAMES, both packages track it without losing a frame; the loop
 bench's circle loses frames in both).
+
+Inside `render_pool(processes)` every one of these sequences renders on one
+pool of spawned processes, started once, a run of frames each; the frames
+are the same as when rendered in-process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 
@@ -65,21 +71,92 @@ def _u8(a):
     return np.clip(a, 0, 255).astype(np.uint8)
 
 
+# (pool, processes) while render_pool is in force
+_pool = None
+
+
+@contextlib.contextmanager
+def render_pool(processes: int):
+    """While inside, the sequences of this module render on one pool of
+    `processes` spawned processes (one BLAS thread each), started here; the
+    frames are the same. With `processes` <= 1, or inside another
+    render_pool, nothing changes."""
+    global _pool
+    if processes <= 1 or _pool is not None:
+        yield
+        return
+    import multiprocessing
+    names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: "1" for k in names})
+    try:   # the workers start here and keep this environment
+        pool = multiprocessing.get_context("spawn").Pool(processes)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _pool = (pool, processes)
+    try:
+        with pool:
+            yield
+    finally:
+        _pool = None
+
+
+def _stereo_at(rule: str, every: int, i: int) -> bool:
+    """Whether frame i has a right image: on every frame ("all"), frame 0
+    ("first"), frame 0 and every keyframe of the cadence `every`
+    ("keyframes"), or none ("none")."""
+    return (rule == "all" or (i == 0 and rule != "none")
+            or (rule == "keyframes" and (i + 1) % every == 0))
+
+
+def _render_range(job) -> list:
+    """Frames lo..hi-1 of a sequence (render_sequence's job)."""
+    scene, gt, baseline, u8, rule, every, lo, hi = job
+    if not isinstance(scene, CorridorScene):
+        camera, kw = scene
+        scene = CorridorScene(camera, **kw)
+    out = _u8 if u8 else (lambda a: a)
+    frames = []
+    for i in range(lo, hi):
+        if _stereo_at(rule, every, i):
+            frames.append(tuple(out(x) for x in scene.stereo_pair(gt[i],
+                                                                  baseline)))
+        else:
+            frames.append((out(scene.render(gt[i])), None))
+    return frames
+
+
+def render_sequence(camera, scene_kw: dict, gt: np.ndarray,
+                    baseline: float, u8: bool, rule: str, every: int = 1,
+                    scene=None) -> list:
+    """[(left, right or None)] of the trajectory `gt` in
+    CorridorScene(camera, **scene_kw) (`scene`, where the caller built it),
+    right images where _stereo_at says; uint8 with `u8`, else float32 as
+    rendered. On render_pool's processes when one is in force, a run of
+    frames each."""
+    if _pool is None:
+        return _render_range((scene or CorridorScene(camera, **scene_kw), gt,
+                              baseline, u8, rule, every, 0, len(gt)))
+    pool, processes = _pool
+    cut = np.linspace(0, len(gt), processes + 1).astype(int)
+    jobs = [((camera, scene_kw), gt, baseline, u8, rule, every, lo, hi)
+            for lo, hi in zip(cut[:-1], cut[1:]) if hi > lo]
+    return [f for part in pool.map(_render_range, jobs) for f in part]
+
+
 def _render(cfg: PipelineConfig, gt: np.ndarray, baseline: float,
             width: float = 10.0, u8: bool = True):
     """Right images on frame 0 and on every keyframe, in a CorridorScene
     `width` m wide and 5 m high; uint8 with `u8`, else float32 as
-    rendered."""
-    scene = CorridorScene(cfg.camera, width=width, height=5.0)
-    out = _u8 if u8 else (lambda a: a)
-    frames = []
-    for i, T in enumerate(gt):
-        if i == 0 or (i + 1) % cfg.keyframe_every == 0:
-            left, right = scene.stereo_pair(T, baseline)
-            frames.append((out(left), out(right)))
-        else:
-            frames.append((out(scene.render(T)), None))
-    return frames, gt, scene
+    rendered. Returns (frames, gt, scene)."""
+    kw = dict(width=width, height=5.0)
+    scene = CorridorScene(cfg.camera, **kw)
+    return (render_sequence(cfg.camera, kw, gt, baseline, u8, "keyframes",
+                            cfg.keyframe_every, scene), gt, scene)
 
 
 def corridor_frames(cfg: PipelineConfig, n: int, baseline: float = BASELINE):
@@ -117,13 +194,18 @@ def tracked_loop_config() -> PipelineConfig:
 
 
 def tracked_loop_frames(cfg: PipelineConfig, n: int = 48,
-                        baseline: float = TRACKED_BASELINE):
+                        baseline: float = TRACKED_BASELINE,
+                        width: float = 8.0, radius: float = 1.0,
+                        ease: float = 0.75):
     """That test's closed circle (tests/test_loop_online.py:60-80, 48
     frames) at n frames: a 1 m circle in an 8 m wide corridor, float32
     images as rendered, a stereo pair on frame 0 and on keyframes (at
-    `cfg`'s camera, whose bf is fx * `baseline`). Returns (frames, gt)."""
-    frames, gt, _ = _render(cfg, loop_trajectory(n, radius=1.0),
-                            baseline, width=8.0, u8=False)
+    `cfg`'s camera, whose bf is fx * `baseline`). `width`, `radius` and
+    `ease` give another corridor width, circle and speed profile
+    (loop_trajectory). Returns (frames, gt)."""
+    frames, gt, _ = _render(cfg, loop_trajectory(n, radius=radius,
+                                                 ease=ease),
+                            baseline, width=width, u8=False)
     return frames, gt
 
 
@@ -148,28 +230,23 @@ def direct_frames(cfg: PipelineConfig, n: int = 24,
     slow yaw down the default corridor, a stereo pair on frame 0 and left
     images after it. Returns ([(left, right or None)], gt)."""
     gt = forward_yaw_trajectory(n, step=0.05, yaw_rate=0.006)
-    scene = CorridorScene(cfg.camera)
-    frames = [tuple(_u8(x) for x in scene.stereo_pair(gt[0], baseline))]
-    frames += [(_u8(scene.render(T)), None) for T in gt[1:]]
-    return frames, gt
+    return render_sequence(cfg.camera, {}, gt, baseline, True, "first"), gt
 
 
 def indirect_frames(cfg: PipelineConfig, n: int = 12):
     """The indirect corridor sequence at cfg's camera: forward motion with
     a yaw, a stereo pair on every frame at the baseline bf / fx."""
     gt = forward_yaw_trajectory(n, step=0.08, yaw_rate=0.012)
-    scene = CorridorScene(cfg.camera)
-    baseline = cfg.camera.bf / cfg.camera.fx
-    return [tuple(_u8(x) for x in scene.stereo_pair(T, baseline))
-            for T in gt], gt
+    return render_sequence(cfg.camera, {}, gt,
+                           cfg.camera.bf / cfg.camera.fx, True, "all"), gt
 
 
 def mono_frames(cfg: PipelineConfig, n: int = 28):
     """The monocular sequence at cfg's camera: sideways motion with a
     gentle yaw (the bootstrap's parallax), left images only."""
     gt = lateral_trajectory(n, step=0.06, yaw_amp=0.01)
-    scene = CorridorScene(cfg.camera)
-    return [_u8(scene.render(T)) for T in gt], gt
+    return [f[0] for f in render_sequence(cfg.camera, {}, gt, 0.0, True,
+                                          "none")], gt
 
 
 def closing_error(poses: np.ndarray, gt: np.ndarray) -> float:

@@ -29,7 +29,7 @@ import numpy as np
 from trackingbench_slam_tpu_torch.utils.config import CameraConfig
 from trackingbench_slam_tpu_torch.utils.image_loader import ImageLoader
 from trackingbench_slam_tpu_torch.utils.synthetic import (
-    CorridorScene, PlaneSequence, forward_yaw_trajectory, lateral_trajectory)
+    PlaneSequence, forward_yaw_trajectory, lateral_trajectory)
 
 
 @dataclasses.dataclass
@@ -161,15 +161,17 @@ def save_corridor_kitti(root: str, n_frames: int = 100,
     times.txt and a poses/00.txt ground truth, the full-sequence protocol
     of the reference's test_kitti (test/test_vo.cpp:613-872) with exact
     ground truth. Returns the loaded StereoSequence."""
-    scene = CorridorScene(_centred_camera(width, height, fx, baseline),
-                          width=10.0, height=5.0)
+    from trackingbench_slam_tpu_torch.utils.corridor import render_sequence
+    gt = forward_yaw_trajectory(n_frames, step=step, yaw_rate=yaw_rate)
+    pairs = iter(render_sequence(
+        _centred_camera(width, height, fx, baseline),
+        dict(width=10.0, height=5.0), gt, baseline, False, "all"))
 
     def write_pair(T, left, right):
-        L, R = scene.stereo_pair(T, baseline)
+        L, R = next(pairs)
         _write_gray_png(left + ".png", L)
         _write_gray_png(right + ".png", R)
-    _write_kitti_layout(root, forward_yaw_trajectory(
-        n_frames, step=step, yaw_rate=yaw_rate), write_pair)
+    _write_kitti_layout(root, gt, write_pair)
     return load_kitti_odometry(root, "00")
 
 
@@ -181,9 +183,12 @@ def save_synthetic_euroc(root: str, n_frames: int = 24,
     their ns timestamps, data.csv, a ground-truth csv of p + q_wxyz rows),
     so that load_euroc runs end to end."""
     from scipy.spatial.transform import Rotation
-    scene = CorridorScene(_centred_camera(width, height, fx, baseline),
-                          width=8.0, height=4.0)
+
+    from trackingbench_slam_tpu_torch.utils.corridor import render_sequence
     gt = forward_yaw_trajectory(n_frames, step=0.08, yaw_rate=0.012)
+    pairs = render_sequence(_centred_camera(width, height, fx, baseline),
+                            dict(width=8.0, height=4.0), gt, baseline,
+                            False, "all")
     cam0 = os.path.join(root, "mav0", "cam0", "data")
     cam1 = os.path.join(root, "mav0", "cam1", "data")
     gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
@@ -192,8 +197,7 @@ def save_synthetic_euroc(root: str, n_frames: int = 24,
     t0 = 1403636579763555584  # EuRoC-style ns epoch
     stamps = t0 + np.arange(n_frames, dtype=np.int64) * 50_000_000
     rows = []
-    for i, T in enumerate(gt):
-        L, R = scene.stereo_pair(T, baseline)
+    for i, (T, (L, R)) in enumerate(zip(gt, pairs)):
         _write_gray_png(os.path.join(cam0, f"{stamps[i]}.png"), L)
         _write_gray_png(os.path.join(cam1, f"{stamps[i]}.png"), R)
         T_wc = np.linalg.inv(T)

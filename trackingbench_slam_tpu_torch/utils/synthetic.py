@@ -225,14 +225,17 @@ class CorridorScene:
             rel = pts - pl.p0[None, :]
             uu = rel @ pl.u
             vv = rel @ pl.v
-            hit = ((t > 0.1) & (t < best_t)
-                   & (np.abs(uu) <= pl.half_u) & (np.abs(vv) <= pl.half_v))
+            hit = np.flatnonzero(
+                (t > 0.1) & (t < best_t)
+                & (np.abs(uu) <= pl.half_u) & (np.abs(vv) <= pl.half_v))
             ch, cw = pl.canvas.shape
-            uv = np.stack([uu * pl.px_per_m + cw / 2,
-                           vv * pl.px_per_m + ch / 2], axis=-1)
-            vals = _bilinear_np(pl.canvas, uv)
-            out = np.where(hit, vals, out).astype(np.float32)
-            best_t = np.where(hit, t, best_t)
+            # the texture is sampled at the pixels this plane takes only
+            # (elementwise, so each value is the one the whole image's
+            # sampling gives)
+            uv = np.stack([uu[hit] * pl.px_per_m + cw / 2,
+                           vv[hit] * pl.px_per_m + ch / 2], axis=-1)
+            out[hit] = _bilinear_np(pl.canvas, uv)
+            best_t[hit] = t[hit]
         depth = (best_t[:, None] * rays)[:, 2]  # z along camera axis
         return (out.reshape(h, w),
                 np.where(np.isfinite(depth), depth, 0.0)
