@@ -40,9 +40,7 @@ from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
 from trackingbench_slam_tpu_torch.utils.device import (resolve_device,
                                                        upload_image)
-
-# record_function ranges (read with torch.profiler)
-_stage = torch.profiler.record_function
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 def unit_bearings(cam: cam_mod.CameraParams, px: torch.Tensor):
@@ -95,7 +93,7 @@ class DirectVO:
         dev = self.device
         f = make_frame(img_left, cfg.extractor.num_features,
                        cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
-        with _stage("direct.extract_fast"):
+        with stage("direct.extract_fast"):
             f = extract_fast(f, cam, cfg.extractor, cfg.pyramid,
                              num_levels=min(3, cfg.pyramid.num_levels),
                              suppress_xy=carry_px, suppress_valid=carry_ok)
@@ -244,14 +242,14 @@ class DirectVO:
                          cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
         kf = self.kf
         T_init = se3.compose(self.T_cw, se3.inverse(kf.T_cw))
-        with _stage("direct.sparse_image_align"):
+        with stage("direct.sparse_image_align"):
             res = direct.sparse_image_align(
                 self.cam, kf.pyramid, cur.pyramid, kf.kp_xy, self.kf_depth,
                 self.kf_has_lm, T_init, cfg.direct,
                 scale_factor=cfg.pyramid.scale_factor)
         T_cw = se3.compose(res.T_cur_ref, kf.T_cw)
         cur = cur._replace(T_cw=T_cw)
-        with _stage("direct.features_align"):
+        with stage("direct.features_align"):
             fa = direct.features_align(
                 self.cam, cur, kf.pyramid, kf.T_cw, self.kf_pos_w, kf.kp_xy,
                 self.kf_has_lm, cfg.direct,
@@ -260,13 +258,13 @@ class DirectVO:
                 cand_level=kf.kp_level)
         inv_s2 = torch.ones((kf.capacity,), dtype=torch.float32,
                             device=self.device)
-        with _stage("direct.pose_optimization"):
+        with stage("direct.pose_optimization"):
             opt = pose_opt.pose_optimization(
                 self.cam, T_cw, self.kf_pos_w, fa.px_cur, inv_s2,
                 fa.ok & self.kf_has_lm, cfg.solver)
         self.T_cw = opt.T_cw
         self.num_tracked_dev = opt.num_inliers
-        with _stage("direct.update_seeds"):
+        with stage("direct.update_seeds"):
             self._update_seeds(cur)
         self.trajectory.append(self.T_cw)
         self.frame_id += 1
@@ -280,7 +278,7 @@ class DirectVO:
             carry_ok = (self.kf_has_lm & (p_c[:, 2] > 0.05)
                         & cam_mod.is_in_frame(self.cam, carry_px,
                                               boundary=8.0))
-            with _stage("direct.make_keyframe"):
+            with stage("direct.make_keyframe"):
                 self._make_keyframe(img_left, img_right, self.T_cw,
                                     carry_pos_w=self.kf_pos_w,
                                     carry_px=carry_px, carry_ok=carry_ok)

@@ -25,8 +25,7 @@ from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
 from trackingbench_slam_tpu_torch.utils.device import (resolve_device,
                                                        upload_image)
-
-_stage = torch.profiler.record_function
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 class MatchStrategy(enum.Enum):
@@ -67,13 +66,13 @@ def indirect_track_step(state: vo_mod.VOState, img: torch.Tensor,
                         voc=None) -> vo_mod.VOState:
     """One frame: extract, match against the previous frame, propagate the
     landmark links, optimize the pose, then the stereo keyframe step."""
-    with _stage("indirect.extract_orb"):
+    with stage("indirect.extract_orb"):
         f_cur = make_frame(img, cfg.extractor.num_features,
                            cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
         f_cur = extract_orb(f_cur, cam, cfg.extractor, cfg.pyramid)
     f_cur = f_cur._replace(T_cw=state.T_cw)
     prev, m = state.prev, state.map
-    with _stage("indirect.match"):
+    with stage("indirect.match"):
         res = match_frames(f_cur, prev, m.pos, cam, cfg, strategy, voc)
     M = m.capacity
     f_cur = f_cur._replace(map_idx=torch.where(
@@ -82,7 +81,7 @@ def indirect_track_step(state: vo_mod.VOState, img: torch.Tensor,
     edges = (f_cur.map_idx >= 0) & f_cur.valid & m.valid[mp]
     inv_s2 = pose_opt.level_inv_sigma2(f_cur.kp_level,
                                        cfg.pyramid.scale_factor)
-    with _stage("indirect.pose_optimization"):
+    with stage("indirect.pose_optimization"):
         opt = pose_opt.pose_optimization(cam, state.T_cw, m.pos[mp],
                                          f_cur.kp_xy, inv_s2, edges,
                                          cfg.solver)
@@ -92,7 +91,7 @@ def indirect_track_step(state: vo_mod.VOState, img: torch.Tensor,
     state = state._replace(prev=f_cur, T_cw=opt.T_cw,
                            frame_id=state.frame_id + 1,
                            num_inliers=opt.num_inliers)
-    with _stage("indirect.keyframe_step"):
+    with stage("indirect.keyframe_step"):
         return vo_mod.keyframe_step(state, img_right, cam, cfg)
 
 

@@ -32,8 +32,7 @@ from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.solvers.local_ba import (
     BAProblem, GroupedBAProblem, _grouped_residuals, bundle_adjust_grouped)
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
-
-_stage = torch.profiler.record_function
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 def _ring_order(kfs):
@@ -164,10 +163,10 @@ def local_ba_step(state, cam: cam_mod.CameraParams, cfg: PipelineConfig,
                  init_lambda=cfg.solver.init_lambda, num_fixed=num_fixed,
                  fixed_mask=fixed_mask, stereo_weight=cfg.solver.stereo_weight)
     if cfg.mesh.lm > 1:
-        with _stage("ba.distributed_bundle_adjust_grouped"):
+        with stage("ba.distributed_bundle_adjust_grouped"):
             T_opt, X_opt = sharded_solve(cam, problem, cfg, **solve)
     else:
-        with _stage("ba.bundle_adjust_grouped"):
+        with stage("ba.bundle_adjust_grouped"):
             T_opt, X_opt = bundle_adjust_grouped(cam, problem, **solve)
 
     ord_valid = kfs.valid[order]
@@ -215,5 +214,5 @@ def track_keyframe_ba_step(state, img_left: torch.Tensor,
     from trackingbench_slam_tpu_torch.models import vo as vo_mod
     state = vo_mod.track_and_keyframe_step(state, img_left, img_right, cam,
                                            cfg, generator, uniform)
-    with _stage("keyframe.local_ba_step"):
+    with stage("keyframe.local_ba_step"):
         return local_ba_step(state, cam, cfg)

@@ -33,6 +33,7 @@ from trackingbench_slam_tpu_torch.solvers import pose_graph, pose_opt
 from trackingbench_slam_tpu_torch.utils.config import (MatcherConfig,
                                                        SolverConfig)
 from trackingbench_slam_tpu_torch.utils.device import HostCopy, resolve_device
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 def _register_query_device(voc: bow.Vocabulary, vectors: torch.Tensor,
@@ -130,7 +131,7 @@ def track_keyframe_register_step(state, img_left, img_right, cam, cfg,
         state = vo_mod.track_and_keyframe_step(state, img_left, img_right,
                                                cam, cfg, generator, uniform)
     f = state.prev
-    with torch.profiler.record_function("keyframe.bow_register_query"):
+    with stage("keyframe.bow_register_query"):
         if sparse:
             nodes, v, dba, dbb, idx, vals = _register_query_device_sparse(
                 voc, db_a, db_b, slot, used_after, f.desc, f.valid,

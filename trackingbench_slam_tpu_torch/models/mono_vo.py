@@ -38,8 +38,7 @@ from trackingbench_slam_tpu_torch.ops.stats import nanmedian
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
 from trackingbench_slam_tpu_torch.utils.device import (resolve_device,
                                                        upload_image)
-
-_stage = torch.profiler.record_function
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 def intrinsics(cam: cam_mod.CameraParams) -> torch.Tensor:
@@ -79,7 +78,7 @@ def mono_keyframe_step(state: vo_mod.VOState, kf_lk_pyr, kf_T_cw,
     p_guess = torch.stack([xn * med_d, yn * med_d, med_d.expand_as(xn)], -1)
     px_prior = cam_mod.world2cam(cam, se3.transform_points(T_kf_cur,
                                                            p_guess))
-    with _stage("mono.lk"):
+    with stage("mono.lk"):
         lk = lk_pyramidal(f.lk_pyr, kf_lk_pyr, f.kp_xy, f.valid, 0.5,
                           half=10, iters=30, num_levels=2,
                           init_offset=px_prior - f.kp_xy)
@@ -196,21 +195,21 @@ class MonoVO:
         img = upload_image(img, self.device)
         self.fid += 1
         if not self.initialized:
-            with _stage("mono.bootstrap"):
+            with stage("mono.bootstrap"):
                 self._try_bootstrap(img)
             return self.trajectory[-1]
-        with _stage("track_step"):
+        with stage("track_step"):
             self.state = vo_mod.track_step(self.state, img, self.cam,
                                            self.cfg, self.generator)
         if self.fid % self.cfg.keyframe_every == 0:
-            with _stage("mono.keyframe_step"):
+            with stage("mono.keyframe_step"):
                 self.state = mono_keyframe_step(self.state, self.kf_lk_pyr,
                                                 self.kf_T_cw, self.cam,
                                                 self.cfg)
             self.kf_count += 1
             if (self.cfg.local_ba_every > 0
                     and self.kf_count % self.cfg.local_ba_every == 0):
-                with _stage("mono.local_ba_step"):
+                with stage("mono.local_ba_step"):
                     self.state = local_ba_step(self.state, self.cam,
                                                self.cfg, num_fixed=2)
                 self.ba_calls += 1

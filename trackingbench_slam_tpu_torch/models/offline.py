@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 class OfflineResult(NamedTuple):
@@ -74,7 +75,7 @@ def offline_run(state, lefts: torch.Tensor, rights: torch.Tensor,
                     else vo_mod.track_and_keyframe_step)
             state = step(state, left, right, cam, cfg, generator)
         else:
-            with vo_mod._stage("track_step"):
+            with stage("track_step"):
                 state = vo_mod.track_step(state, left, cam, cfg, generator)
         T_cw.append(state.T_cw)
         inliers.append(state.num_inliers)

@@ -48,11 +48,10 @@ from trackingbench_slam_tpu_torch.utils.config import PipelineConfig
 from trackingbench_slam_tpu_torch.utils.device import (HostCopy,
                                                        resolve_device,
                                                        upload_image)
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
-# Named ranges over the steps and their stages, read by profile_main_path.py
-# from torch.profiler; with no profiler running a range costs the host about
-# 10 us (profile_main_path.py measures it).
-_stage = torch.profiler.record_function
+# the stage ranges (utils/profiling.py `stage`) that profile_main_path.py
+# tables
 STAGE_PREFIXES = ("track", "keyframe", "ba.")
 
 
@@ -71,22 +70,23 @@ class VOState(NamedTuple):
 
 
 def init_state(cfg: PipelineConfig, first_img: torch.Tensor) -> VOState:
-    dev = first_img.device
-    frame = make_frame(first_img, cfg.extractor.num_features,
-                       cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
-    return VOState(
-        prev=frame,
-        map=map_mod.empty_map(cfg.map.max_points, cfg.map.max_obs_per_point,
-                              dev),
-        kfs=map_mod.empty_keyframes(cfg.map.max_keyframes,
-                                    cfg.extractor.num_features, dev),
-        T_cw=torch.eye(4, dtype=torch.float32, device=dev),
-        frame_id=torch.zeros((), dtype=torch.int32, device=dev),
-        key=torch.zeros((2,), dtype=torch.int64, device=dev),
-        num_inliers=torch.zeros((), dtype=torch.int32, device=dev),
-        flow=torch.zeros((2,), dtype=torch.float32, device=dev),
-        T_rel=torch.eye(4, dtype=torch.float32, device=dev),
-    )
+    with stage("init.state"):
+        dev = first_img.device
+        frame = make_frame(first_img, cfg.extractor.num_features,
+                           cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
+        return VOState(
+            prev=frame,
+            map=map_mod.empty_map(cfg.map.max_points,
+                                  cfg.map.max_obs_per_point, dev),
+            kfs=map_mod.empty_keyframes(cfg.map.max_keyframes,
+                                        cfg.extractor.num_features, dev),
+            T_cw=torch.eye(4, dtype=torch.float32, device=dev),
+            frame_id=torch.zeros((), dtype=torch.int32, device=dev),
+            key=torch.zeros((2,), dtype=torch.int64, device=dev),
+            num_inliers=torch.zeros((), dtype=torch.int32, device=dev),
+            flow=torch.zeros((2,), dtype=torch.float32, device=dev),
+            T_rel=torch.eye(4, dtype=torch.float32, device=dev),
+        )
 
 
 def _neg1(x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +100,7 @@ def track_step(state: VOState, img: torch.Tensor, cam: cam_mod.CameraParams,
     """Frame-to-frame tracking: LK match to the previous frame from the
     motion-model prior, landmark links along the match, motion-only BA.
     RANSAC draws come from `generator` (or are given as `uniform`)."""
-    with _stage("track.make_frame"):
+    with stage("track.make_frame"):
         f_cur = make_frame(img, cfg.extractor.num_features,
                            cfg.pyramid.num_levels, cfg.pyramid.scale_factor)
     nlv = cfg.lk_track_levels if cfg.lk_track_levels > 0 else None
@@ -114,7 +114,7 @@ def track_step(state: VOState, img: torch.Tensor, cam: cam_mod.CameraParams,
                & (p_pred[:, 2] > 0.05))
     init_off = torch.where(pred_ok[:, None], px_pred - prev.kp_xy,
                            state.flow[None, :])
-    with _stage("track.search_by_opflow"):   # LK + F-RANSAC
+    with stage("track.search_by_opflow"):   # LK + F-RANSAC
         res, xy = matchers.search_by_opflow(
             f_cur, prev, generator, cfg.matcher,
             scale=cfg.pyramid.scale_factor, use_ransac=True, num_levels=nlv,
@@ -136,7 +136,7 @@ def track_step(state: VOState, img: torch.Tensor, cam: cam_mod.CameraParams,
     edges = has_mp & m.valid[mp]
     inv_s2 = pose_opt.level_inv_sigma2(f_cur.kp_level,
                                        cfg.pyramid.scale_factor)
-    with _stage("track.pose_optimization"):
+    with stage("track.pose_optimization"):
         opt = pose_opt.pose_optimization(cam, T_pred, m.pos[mp], f_cur.kp_xy,
                                          inv_s2, edges, cfg.solver)
     f_cur = f_cur._replace(
@@ -157,7 +157,7 @@ def add_fresh_keypoints(f: FrameState, cam: cam_mod.CameraParams,
                         cfg: PipelineConfig) -> FrameState:
     """ORB re-extraction with suppression near the live features; the
     fresh keypoints fill the free rows, without landmarks."""
-    with _stage("keyframe.extract_orb"):
+    with stage("keyframe.extract_orb"):
         fresh = extract_orb(f, cam, cfg.extractor, cfg.pyramid,
                             suppress_xy=f.kp_xy, suppress_valid=f.valid)
     dest = map_mod.free_slot_destinations(~f.valid, fresh.valid)
@@ -188,7 +188,7 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     mp_pre = f.map_idx.clamp(0, M0 - 1).long()
     has_anchor = (f.map_idx >= 0) & f.valid & m_pre.valid[mp_pre]
     centers = map_mod.atlas_cell_centers(mp_pre, m_pre.atlas_grid)
-    with _stage("keyframe.anchored_align"):
+    with stage("keyframe.anchored_align"):
         aa = anchored_align(m_pre.anchor_atlas, f.lk_pyr[0], centers,
                             f.kp_xy, has_anchor, half=4, iters=10)
     drift = ((aa.xy - f.kp_xy) ** 2).sum(-1)
@@ -200,7 +200,7 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     f = add_fresh_keypoints(f, cam, cfg)
 
     # stereo LK left -> right with a disparity prior from known landmarks
-    with _stage("keyframe.stereo_lk"):
+    with stage("keyframe.stereo_lk"):
         right = make_frame(img_right, 1, cfg.pyramid.num_levels,
                            cfg.pyramid.scale_factor)
         M = state.map.capacity
@@ -246,7 +246,7 @@ def keyframe_step(state: VOState, img_right: torch.Tensor,
     kp_ur = torch.where(depth_ok, lk.xy[:, 0], torch.full_like(depth, -1.0))
     state, slots, got = map_keyframe(state, f, p_w, depth_ok, cam, cfg,
                                      kp_ur=kp_ur)
-    with _stage("keyframe.write_anchor_patches"):
+    with stage("keyframe.write_anchor_patches"):
         m = map_mod.write_anchor_patches(state.map, f.lk_pyr[0], f.kp_xy,
                                          slots, got)
     return state._replace(map=m)
@@ -268,7 +268,7 @@ def map_keyframe(state: VOState, f: FrameState, p_w: torch.Tensor,
     T_wc = se3.inverse(f.T_cw)
     # map-to-frame projection: link fresh features, fuse duplicates
     m0 = state.map
-    with _stage("keyframe.search_by_projection_map"):
+    with stage("keyframe.search_by_projection_map"):
         proj = matchers.search_by_projection_map(
             cam, f, m0, cfg.matcher, scale_factor=cfg.pyramid.scale_factor,
             num_levels=cfg.pyramid.num_levels, only_unlinked=False,
@@ -344,9 +344,9 @@ def track_and_keyframe_step(state: VOState, img_left, img_right,
                             generator: torch.Generator | None = None,
                             uniform: torch.Tensor | None = None
                             ) -> VOState:
-    with _stage("track_step"):
+    with stage("track_step"):
         state = track_step(state, img_left, cam, cfg, generator, uniform)
-    with _stage("keyframe_step"):
+    with stage("keyframe_step"):
         return keyframe_step(state, img_right, cam, cfg)
 
 
@@ -442,7 +442,7 @@ class StereoVO:
                     self.state, img_left, img_right, self.cam, self.cfg,
                     self.generator)
         else:
-            with _stage("track_step"):
+            with stage("track_step"):
                 self.state = track_step(self.state, img_left, self.cam,
                                         self.cfg, self.generator)
         prev_inliers = self._fetch_late()

@@ -56,6 +56,7 @@ from trackingbench_slam_tpu_torch.ops import fast as fast_ops
 from trackingbench_slam_tpu_torch.ops import image as image_ops
 from trackingbench_slam_tpu_torch.parallel import dp_eval
 from trackingbench_slam_tpu_torch.solvers import pose_opt
+from trackingbench_slam_tpu_torch.utils import profiling
 
 TRACK_STEPS = 3   # serial track steps before the checked keyframe frame
 
@@ -148,7 +149,8 @@ def merge_diffs(diffs) -> dict:
 
 
 class _Recorder:
-    """Records the WATCHED calls of serial steps, per stage."""
+    """Records the WATCHED calls of serial steps, per stage: a consumer of
+    the stage spans (utils/profiling.py `record`)."""
 
     def __init__(self):
         self.calls = None
@@ -156,16 +158,11 @@ class _Recorder:
         self.depth = 0
         self.step = None
 
-    def stage_range(self, name):
-        @contextlib.contextmanager
-        def ranged():
-            self.stages.append(name)
-            try:
-                with torch.profiler.record_function(name):
-                    yield
-            finally:
-                self.stages.pop()
-        return ranged()
+    def enter(self, span):
+        self.stages.append(span.name)
+
+    def exit(self, span):
+        self.stages.pop()
 
     def wrap(self, fn, nested):
         @functools.wraps(fn)
@@ -186,12 +183,11 @@ class _Recorder:
     @contextlib.contextmanager
     def installed(self):
         saved = [(m, n, getattr(m, n)) for m, n, _ in WATCHED]
-        saved.append((vo_mod, "_stage", vo_mod._stage))
         try:
             for m, n, nested in WATCHED:
                 setattr(m, n, self.wrap(getattr(m, n), nested))
-            vo_mod._stage = self.stage_range
-            yield self
+            with profiling.record(self):
+                yield self
         finally:
             for m, n, fn in saved:
                 setattr(m, n, fn)

@@ -35,6 +35,7 @@ import torch.utils._pytree as pytree
 
 from trackingbench_slam_tpu_torch.models import vo as vo_mod
 from trackingbench_slam_tpu_torch.ops import ransac
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 RANSAC_SAMPLES = 256   # hypotheses a track step draws (search_by_opflow)
 
@@ -75,7 +76,7 @@ def dp_track_step(states: vo_mod.VOState, imgs: torch.Tensor, cam, cfg,
     (B, H, W), uniform (B, 256, N) (`draw_uniform`)."""
     def step(state, img, u):
         return vo_mod.track_step(state, img, cam, cfg, uniform=u)
-    with torch.profiler.record_function("dp.track_step"):
+    with stage("dp.track_step"):
         return torch.func.vmap(step, randomness="error")(states, imgs,
                                                           uniform)
 
@@ -89,7 +90,7 @@ def dp_track_and_keyframe_step(states: vo_mod.VOState, imgs_l: torch.Tensor,
         state = vo_mod.track_step(state, left, cam, cfg, uniform=u)
         return vo_mod.keyframe_step(state, right, cam, cfg,
                                     both_branches=True)
-    with torch.profiler.record_function("dp.track_and_keyframe_step"):
+    with stage("dp.track_and_keyframe_step"):
         return torch.func.vmap(step, randomness="error")(states, imgs_l,
                                                           imgs_r, uniform)
 

@@ -12,15 +12,15 @@ with windowed BA off) over 40 corridor frames. A torch.profiler session
 leaves the process slower for a while after it ends (PERF.md), so
 every figure timed on the host clock is taken before the first profiler
 session of the process:
-  1. an empty record_function range's host cost, profiler off;
+  1. an empty stage's host cost (utils/profiling.py `stage`: a
+     record_function range), profiler off, no recorder installed;
   2. a fresh StereoVO over the 40 frames, frames 11-39 each fenced by
      torch.cuda.synchronize(): wall ms per frame (tracking frames,
      keyframes and BA keyframes apart) and frames/s;
-  3. a fresh StereoVO over frames 0-20 with the stage ranges (the
-     record_function ranges of models/vo.py and models/local_mapping.py)
-     timed on the host clock, each fenced at both ends
-     (utils/profiling.py `StageTimer(fenced_host=True)`), over frames
-     11-20: host ms a call of each stage, unprofiled;
+  3. a fresh StereoVO over frames 0-20 with every stage timed on the host
+     clock, each fenced at both ends (utils/profiling.py `StageTimer`, a
+     consumer of the stage spans' recorder), over frames 11-20: host ms a
+     call of each stage, unprofiled;
   4. a fresh StereoVO over frames 0-20, frames 11-20 under torch.profiler
      (frame 19 is a BA keyframe): per stage the host ms a call
      (cpu_time_total, which holds the profiler's own per-op cost) and the
@@ -40,7 +40,7 @@ frames 11-39), `--runs` times; then one torch.profiler session over a few
 small ops (`--between profiler`), or over a fresh StereoVO's first 11
 frames (`window`), or nothing (`none`, the control); then `--runs` fresh
 runs again. Beside each run: the host microseconds of one small op's
-launch and of an empty record_function range, the host ms of a fixed
+launch and of an empty stage, the host ms of a fixed
 pure-Python loop, torch.cuda.memory_stats() counts,
 gc collections and the time gc.callbacks saw, and the SM clock from
 nvidia-smi before and after. Writes
@@ -51,7 +51,6 @@ Needs CUDA; there is no CPU mode.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import json
 import os
@@ -66,7 +65,8 @@ from trackingbench_slam_tpu_torch.models import local_mapping
 from trackingbench_slam_tpu_torch.models import vo as vo_mod
 from trackingbench_slam_tpu_torch.utils.corridor import (
     corridor_frames, main_path_config, main_path_config_ba_off)
-from trackingbench_slam_tpu_torch.utils.profiling import StageTimer
+from trackingbench_slam_tpu_torch.utils.profiling import (StageTimer,
+                                                          record, stage)
 
 N_FRAMES = 40
 WARM = 11
@@ -76,10 +76,10 @@ HAND_OPS = ("trackingbench::lk_align", "trackingbench::fast_score_nms",
 
 
 def range_cost_us(n: int = 20000) -> float:
-    """Host microseconds of one empty record_function range, profiler off."""
+    """Host microseconds of one empty stage, profiler off, no recorder."""
     t0 = time.perf_counter()
     for _ in range(n):
-        with torch.profiler.record_function("empty"):
+        with stage("empty"):
             pass
     return (time.perf_counter() - t0) / n * 1e6
 
@@ -168,20 +168,6 @@ def range_table(events, prefixes, ops=HAND_OPS):
     return dict(sorted(table.items()))
 
 
-@contextlib.contextmanager
-def timed_stages(timer, modules=(vo_mod, local_mapping)):
-    """While inside, the stage ranges of `modules` (their `_stage`) time
-    each stage with `timer` instead of opening a record_function range."""
-    real = [m._stage for m in modules]
-    for m in modules:
-        m._stage = timer.time
-    try:
-        yield timer
-    finally:
-        for m, r in zip(modules, real):
-            m._stage = r
-
-
 def fenced_frames(cfg, frames):
     """A fresh StereoVO over `frames`; every frame from WARM on fenced:
     [(wall ms, kind)] indexed from frame WARM."""
@@ -205,8 +191,8 @@ def stage_host_ms(cfg, frames):
     """Host ms a call of each stage over frames WARM..WARM+PROFILED-1 of a
     fresh StereoVO, each stage fenced, no profiler."""
     vo = vo_mod.StereoVO(cfg)
-    timer = StageTimer(fenced_host=True)
-    with timed_stages(timer):
+    timer = StageTimer()
+    with record(timer):
         for left, right in frames[:WARM]:
             vo.track(left, right)
         timer.reset()
@@ -273,7 +259,7 @@ def stages_main(cfg, frames):
         "local_ba_every": cfg.local_ba_every,
         "fenced_frames": len(per_frame),
         "fps_fenced": len(per_frame) / (sum(t for t, _ in per_frame) / 1e3),
-        "record_function_us_profiler_off": cost_us,
+        "stage_us_profiler_off": cost_us,
         "stage_host_ms_unprofiled": host,
         "profile_window": window,
     }

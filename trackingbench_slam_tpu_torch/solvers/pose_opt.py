@@ -18,6 +18,7 @@ from trackingbench_slam_tpu_torch.geometry import se3
 from trackingbench_slam_tpu_torch.ops.linalg import (cholesky, cholesky_apply,
                                                      fixed_sum)
 from trackingbench_slam_tpu_torch.utils.config import SolverConfig
+from trackingbench_slam_tpu_torch.utils.profiling import stage
 
 
 class PoseOptResult(NamedTuple):
@@ -105,13 +106,15 @@ def pose_optimization(cam, T_init, pts_w, obs_px, inv_sigma2, valid,
     T = T_init
     for rnd in range(config.rounds):
         delta = config.huber_delta if rnd < config.rounds - 1 else None
-        T, _ = lm_pose_iterations(cam, T, pts_w, obs_px, inv_sigma2, inlier,
-                                  iters=config.iters_per_round,
-                                  huber_delta=delta,
-                                  init_lambda=config.init_lambda)
-        r, pc = _residuals(cam, T, pts_w, obs_px)
-        chi2 = _chi2(r, inv_sigma2)
-        inlier = valid & (chi2 <= config.chi2_threshold) & (pc[..., 2] > 0.05)
+        with stage("track.pose_optimization.round"):
+            T, _ = lm_pose_iterations(cam, T, pts_w, obs_px, inv_sigma2,
+                                      inlier, iters=config.iters_per_round,
+                                      huber_delta=delta,
+                                      init_lambda=config.init_lambda)
+            r, pc = _residuals(cam, T, pts_w, obs_px)
+            chi2 = _chi2(r, inv_sigma2)
+            inlier = (valid & (chi2 <= config.chi2_threshold)
+                      & (pc[..., 2] > 0.05))
     r, pc = _residuals(cam, T, pts_w, obs_px)
     chi2 = _chi2(r, inv_sigma2)
     return PoseOptResult(T_cw=T, inliers=inlier,

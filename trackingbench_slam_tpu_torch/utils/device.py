@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from trackingbench_slam_tpu_torch.utils import profiling
+
 
 def resolve_device(device=None) -> torch.device:
     """CUDA unless the caller names another device. Raises when CUDA is
@@ -19,11 +21,13 @@ def resolve_device(device=None) -> torch.device:
 
 def upload_image(img, device: torch.device) -> torch.Tensor:
     """A frame on `device`, uint8 and float32 kept as they are (make_frame
-    converts on the device), anything else as float32."""
-    t = torch.as_tensor(img)
-    if t.dtype not in (torch.uint8, torch.float32):
-        t = t.float()
-    return t.to(device)
+    converts on the device), anything else as float32. From pageable host
+    memory the copy waits for the device's stream to drain."""
+    with profiling.stage("feed.upload"):
+        t = torch.as_tensor(img)
+        if t.dtype not in (torch.uint8, torch.float32):
+            t = t.float()
+        return t.to(device)
 
 
 class HostCopy:
@@ -43,6 +47,8 @@ class HostCopy:
             self._host = t
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        with profiling.stage("feed.readback_wait"):
+            if self._event is not None:
+                profiling.count("host_syncs")
+                self._event.synchronize()
+            return self._host.numpy()
