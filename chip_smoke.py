@@ -127,6 +127,16 @@ runs before the first torch.profiler session of the process (PHASES):
      and the first frame's stereo LK (4 levels + back-track), and from
      (b) the last keyframe's FAST over the 5-level 1226x370 pyramid, its
      ORB describe and its anchor cells;
+  13b. pose kernel: csrc/pose.cu's solve (a launch a round) against its
+     plain version (the rounds under torch.func.vmap, as the eager batched
+     step ran them) on the inputs recorded from one batched track step of
+     each benchmark cell (slam_bench's battery: KITTI B 44, EuRoC B 55, N
+     2000) and from the loop closer's first verification on the tracked
+     loop (B 1): pose gap |log(T_kernel T_plain^-1)| <= 1e-4, inlier flags
+     differing on <= 0.1% of the edges, the batch bit-equal to each
+     sequence launched alone, one launch a round; the kernel's ms (CUDA
+     events) beside its bound (operations counted from the plain code) and
+     the plain solve's ms;
   14. batched and distributed (parallel/): 8 sequences cut from the main
      path's frames (rights rendered where missing), bootstrapped serially,
      then 3 batched track steps and one batched track-and-keyframe step
@@ -209,8 +219,9 @@ DP_STEPS = 16           # bench.py:512-545 dp_eval_bench's timed steps
 BA_REPS = 4             # benchmarks/ba_scaling.py's pre-uploaded windows
 BA_SWEEPS = 11          # readings of each BA solve's iterations/s
 BA_WINDOW = dict(landmarks=4096, keyframes=16, obs=16)   # and their size
+# (the pose solve: 4 rounds in each frame after the first)
 BA_OFF_LAUNCHES = {"lk_align": 57, "fast_score_nms": 9, "orb_describe": 9,
-                   "anchor_cells": 9}
+                   "anchor_cells": 9, "pose_round": 4 * (N_FRAMES - 1)}
 # the loop bench's accuracies on the TPU (BENCH_r05.json, a TPU run of the
 # JAX package); the figures the port is held to are those of the JAX
 # record, trackingbench_slam_tpu_torch/records/jax_full_width.npz
@@ -243,6 +254,7 @@ PHASES = (
     ("mono", "timed"),
     ("sequences", "timed"),
     ("recorded kernel checks", "timed"),
+    ("pose kernel", "timed"),
     ("batched", "timed"),
     ("BA", "timed"),
     ("main path, BA on, again", "timed"),
@@ -2298,6 +2310,211 @@ def attributed_window(phases, cfg, frames, device):
     return dict(stages=table, missing=missing)
 
 
+# --- the pose solve's round kernel (csrc/pose.cu) against its plain version
+
+POSE_CELLS = ("kitti-stereo.dataset", "euroc-stereo.dataset")
+POSE_SEED = 2 ** 31 + 17     # the battery's order and RANSAC draws
+POSE_STEP = 3                # the battery step whose solve is recorded
+POSE_REPS = 20               # kernel solves timed a case
+POSE_GAP_MAX = 1e-4          # |log(T_kernel T_plain^-1)|
+POSE_FLAGS_MAX = 1e-3        # inlier flags differing, share of the edges
+
+
+# Operations a round needs (products, sums, divisions, roots, sines and
+# cosines; compares and selects not counted), counted on the kernel's own
+# expressions with each shared factor counted once:
+POSE_POINT_OPS = (18     # the camera-frame point: 3x3 product and translation
+                  + 35   # pinhole and distortion to a pixel, the residual
+                  + 4)   # chi2
+POSE_TERM_OPS = (24      # the ten non-zero Jacobian entries
+                 + 10    # Jacobian times weight
+                 + 40    # H's upper triangle: 30 products, 10 sums
+                 + 14)   # b: 10 products, 4 sums
+POSE_HUBER_OPS = 6       # the weight's root, reciprocal, 2 products; cost 2
+POSE_SUMS = 28           # H's 21 independent entries, b's 6, the cost
+POSE_ITER_OPS = (6 + 91 + 72   # damping, 6x6 Cholesky, two triangular solves
+                 + 146         # se3 exp
+                 + 63 + 1)     # compose of two rigid transforms, lambda
+POSE_NORMALIZE_OPS = 216       # two Newton polar steps on a 3x3 rotation
+
+
+def pose_round_ops(m, n, iters, huber):
+    """Operations one round needs on one sequence of n points, m of them in
+    the round's weight mask: 1 + iters builds of (H, b, cost) over the m
+    (the others' terms are zero), the iterations' 6x6 solves, exp and
+    compose, the normalization, and the gate's projection of all n."""
+    per_point = POSE_POINT_OPS + POSE_TERM_OPS + (POSE_HUBER_OPS if huber
+                                                  else 0)
+    build = m * per_point + POSE_SUMS * max(m - 1, 0)
+    return ((1 + iters) * build + iters * POSE_ITER_OPS + POSE_NORMALIZE_OPS
+            + n * POSE_POINT_OPS)
+
+
+def battery_pose_case(workload, device):
+    """The pose solve's inputs in one batched track step of a benchmark
+    cell (slam_bench's battery at POSE_SEED, step POSE_STEP): the first
+    round's launch, recorded, and the cell's solver configuration."""
+    import dataclasses
+    import torch
+    from slam_bench import battery, registry
+    from trackingbench_slam_tpu_torch.ops.cuda import pose_kernel
+    found = registry.find_cell(registry.load_benchmark(), workload)
+    traffic = found["traffic"]
+    run = battery.Run(device=device)
+    cfg = battery.pipeline_config(found["config"])
+    run.S = traffic["sequences"]
+    run.B = run.S * traffic["executions"]
+    lefts, rights, _ = battery.render_battery(
+        traffic, dataclasses.asdict(cfg.camera),
+        cfg.camera.bf / cfg.camera.fx, cfg.keyframe_every, POSE_SEED, device)
+    _, _, gen_seeds = battery.draw_sequences(traffic, POSE_SEED)
+    bat = battery.Battery(run, cfg, lefts, rights, gen_seeds, device)
+    for _ in range(POSE_STEP - 1):
+        bat.step()
+    with watched(pose_kernel, "pose_round_cuda_batched", lambda a, kw: True,
+                 keep=lambda a, kw: [x.clone() if isinstance(
+                     x, torch.Tensor) else x for x in a]) as kept:
+        bat.step()
+    camv, T, pts, obs, s2, mask, valid = kept[0][:7]
+    del bat
+    torch.cuda.empty_cache()
+    return dict(case=f"{workload} step {POSE_STEP}, B {run.B}",
+                camv=camv[0].contiguous(), T=T, pts=pts, obs=obs, s2=s2,
+                valid=valid, config=cfg.solver)
+
+
+def closer_pose_case(rec, device):
+    """The first pose solve of the loop closer's verification
+    (models/loop_closer.py `_verify_candidates_device`) on the tracked loop
+    with the record's vocabulary and draws: a serial call, B 1."""
+    import torch
+    from trackingbench_slam_tpu_torch import parity
+    from trackingbench_slam_tpu_torch.ops.cuda import pose_kernel
+    from trackingbench_slam_tpu_torch.solvers import pose_opt
+    cfg, frames, _, prefix = parity.part_frames(rec, "loop_tracked")
+    vo = parity.loop_bench_tracker(
+        cfg, device, parity.record_vocabulary(rec, "loop_tracked.voc",
+                                              device))
+    draws = parity.RecordedDraws(rec, prefix)
+
+    def from_closer(a, kw):
+        return sys._getframe(2).f_code.co_name == "_verify_candidates_device"
+    with draws.installed(), watched(pose_opt, "pose_optimization",
+                                    from_closer) as kept:
+        for i, frame in enumerate(frames):
+            draws.at = i
+            vo.track(*frame)
+            if kept:
+                break
+    if not kept:
+        raise AssertionError("the tracked loop made no closer verification")
+    (cam, T0, pts, obs, s2, valid, config), _ = kept[0]
+    return dict(case=f"loop closer verification at frame {i}, B 1",
+                camv=pose_kernel.camera_vector(cam), T=T0[None].contiguous(),
+                pts=pts[None].contiguous(), obs=obs[None].contiguous(),
+                s2=s2[None].contiguous(), valid=valid[None].contiguous(),
+                config=config)
+
+
+def check_pose(case):
+    """The kernel's solve (a launch a round, the batch in one) against the
+    plain solve (its rounds under torch.func.vmap, as the eager batched
+    step ran them) on one recorded case: the largest pose gap, inlier flags
+    differing, bit-equal poses, the batch against each sequence launched
+    alone, and the kernel's and the plain solve's ms (CUDA events)."""
+    import torch
+    from trackingbench_slam_tpu_torch.geometry import se3
+    from trackingbench_slam_tpu_torch.ops.cuda import pose_kernel
+    camv, T0, pts, obs, s2, valid, config = (
+        case[k] for k in ("camv", "T", "pts", "obs", "s2", "valid",
+                          "config"))
+    B, n = pts.shape[:2]
+    rounds = [(config.huber_delta if r < config.rounds - 1 else None,
+               config.iters_per_round, config.init_lambda,
+               config.chi2_threshold) for r in range(config.rounds)]
+
+    masks = []   # each round's weight mask: its points in the mask
+
+    def kernel(b=slice(None), keep=False):
+        T, inl, chi2 = T0[b], valid[b], None
+        for sc in rounds:
+            if keep:
+                masks.append(inl.sum(-1))
+            T, inl, chi2 = pose_kernel.pose_round_cuda_batched(
+                camv.expand(T.shape[0], 9), T, pts[b], obs[b], s2[b], inl,
+                valid[b], *sc)
+        return T, inl, chi2
+
+    def plain_one(T, p, o, s, v):
+        inl = v
+        for sc in rounds:
+            T, inl, chi2 = pose_kernel.pose_round_plain(camv, T, p, o, s,
+                                                        inl, v, *sc)
+        return T, inl, chi2
+    plain = torch.func.vmap(plain_one)
+
+    def events_ms(fn, reps):
+        fn()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    before = pose_kernel.pose_round_cuda.launches
+    got = kernel(keep=True)
+    launches = pose_kernel.pose_round_cuda.launches - before
+    ref = plain(T0, pts, obs, s2, valid)
+    alone = [kernel(slice(b, b + 1)) for b in range(B)]
+    batch_equal = all(torch.equal(x[b], y[0]) for b, one in enumerate(alone)
+                      for x, y in zip(got, one))
+    d = got[0].double() @ torch.linalg.inv(ref[0].double())
+    gap = float(se3.log(d).norm(dim=-1).max())
+    edges = int(valid.sum())
+    differing = int((got[1] != ref[1]).sum())
+    ms = events_ms(kernel, POSE_REPS)
+    plain_ms = events_ms(lambda: plain(T0, pts, obs, s2, valid), 2)
+    ops = sum(pose_round_ops(int(m), n, sc[1], sc[0] is not None)
+              for sc, ms in zip(rounds, masks) for m in ms.tolist())
+    nbytes = len(rounds) * B * (n * (12 + 8 + 4 + 1 + 1 + 1 + 4) + 9 * 4
+                                + 2 * 64)
+    b_ms, by = bound(nbytes, ops)
+    out = dict(case=case["case"], B=B, n=n, edges=edges,
+               inliers=int(got[1].sum()), pose_gap=gap,
+               flags_differing=differing,
+               bit_equal_poses=sum(torch.equal(got[0][b], ref[0][b])
+                                   for b in range(B)) / B,
+               batch_equals_alone=batch_equal, launches=launches, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               x_bound=ms / b_ms, ops=ops, bytes=nbytes)
+    if not (gap <= POSE_GAP_MAX and differing <= POSE_FLAGS_MAX * edges
+            and out["bit_equal_poses"] == 1 and batch_equal
+            and launches == config.rounds):
+        raise AssertionError(f"pose kernel off its plain version: {out}")
+    return out
+
+
+def pose_phase(rec, device):
+    """Phase 13b: the pose kernel on two benchmark cells' battery steps and
+    one loop-closer verification, against the plain solve."""
+    cases = [battery_pose_case(w, device) for w in POSE_CELLS]
+    cases.append(closer_pose_case(rec, device))
+    out = []
+    for case in cases:
+        out.append(check_pose(case))
+        c = out[-1]
+        log(f"[check] pose_round on {c['case']} N={c['n']}: gap "
+            f"{c['pose_gap']:.2e}, flags differing {c['flags_differing']} "
+            f"of {c['edges']} edges, poses bit-equal "
+            f"{c['bit_equal_poses']:.3f}, batch = alone "
+            f"{c['batch_equals_alone']}, {c['launches']} launches, "
+            f"{c['ms']:.4f} ms (bound {c['bound_ms']:.5f} by "
+            f"{c['bound_by']}, x{c['x_bound']:.1f}), plain "
+            f"{c['plain_ms']:.1f} ms")
+    return out
+
+
 def bench_child(here):
     """python -m trackingbench_slam_tpu_torch.bench --frames N_FRAMES in a
     fresh process on the same card: its last line, parsed, with the
@@ -2815,6 +3032,9 @@ def run(here):
                     f"({c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, bound "
                     f"{c['bound_ms']:.5f} ms)" for c in new_lk))
 
+    phases.enter("pose kernel")
+    pose = pose_phase(rec, dev)
+
     phases.enter("batched")
     batched, batched_calls, track_steps = batched_phase(
         cfg, frames, gt, scene, counters, dev)
@@ -3031,11 +3251,12 @@ def run(here):
              f"batched_track_and_keyframe_step_B{BATCH}":
                  bl["track_and_keyframe_step"]}
 
-    def entry(name, source, replaces, primary, cases):
+    def entry(name, source, replaces, primary, cases, err="max_abs_err",
+              case_err="max_abs_err"):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name],
                     launches_by_path={p: v[name] for p, v in paths.items()},
-                    max_abs_err=max(c["max_abs_err"] for c in cases),
+                    **{err: max(c[case_err] for c in cases)},
                     ms=primary["ms"], plain_ms=primary["plain_ms"],
                     bound_ms=primary["bound_ms"],
                     bound_by=primary["bound_by"],
@@ -3055,6 +3276,8 @@ def run(here):
         entry("anchor_cells", "trackingbench_slam_tpu_torch/csrc/patch.cu",
               "trackingbench_slam_tpu/ops/pallas/patch_kernel.py:103",
               anchor_cases[0], anchor_cases),
+        entry("pose_round", "trackingbench_slam_tpu_torch/csrc/pose.cu",
+              None, pose[0], pose, err="max_pose_gap", case_err="pose_gap"),
     ]
     result = {"kernels": kernels, "main_path": ba_on,
               "main_path_again": again, "attribution": attributed,

@@ -139,8 +139,11 @@ def test_batched_track_step_equals_serial_runs(setup, no_vmap_fallback):
         imgs = torch.stack([seqs[b][i][0] for b in range(B)])
         batched = dp_eval.dp_track_step(batched, imgs, cam, cfg,
                                         dp_eval.draw_uniform(gens, cfg))
-    # one batched LK launch a step (the rule's one call), nothing else
-    assert no_vmap_fallback == {"lk_align_plain": N_FRAMES}
+    # one batched LK launch a step and one pose-solve launch a round (the
+    # rules' calls), nothing else
+    assert no_vmap_fallback == {"lk_align_plain": N_FRAMES,
+                                "pose_round_plain":
+                                    N_FRAMES * cfg.solver.rounds}
     out = dp_eval.unstack_states(batched, B)
     for b in range(B):
         np.testing.assert_allclose(out[b].T_cw.numpy(),

@@ -32,6 +32,7 @@ from trackingbench_slam_tpu_torch.ops import image as t_image
 from trackingbench_slam_tpu_torch.ops import ransac as t_ransac
 from trackingbench_slam_tpu_torch.ops import stats as t_stats
 from trackingbench_slam_tpu_torch.solvers import pose_opt as t_pose
+from trackingbench_slam_tpu_torch.solvers import reprojection as t_reproj
 from trackingbench_slam_tpu_torch.utils.config import CameraConfig, \
     MatcherConfig, SolverConfig
 from tests.conftest import make_textured_image
@@ -262,7 +263,7 @@ def test_pose_optimization_matches_reference(rng):
     A = rng.normal(size=(6, 6)).astype(np.float32)
     A = A @ A.T + np.eye(6, dtype=np.float32)
     b = rng.normal(size=6).astype(np.float32)
-    np.testing.assert_allclose(t_pose._chol6_solve(t(A), t(b)).numpy(),
+    np.testing.assert_allclose(t_reproj.chol6_solve(t(A), t(b)).numpy(),
                                np.asarray(j_pose._chol6_solve(A, b)),
                                rtol=1e-4, atol=1e-5)
 

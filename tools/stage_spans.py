@@ -17,7 +17,9 @@ and the sample's bounds are read on the recorder's clock by wrapping
            (the outermost keyframe.* spans of the window's keyframe steps, a
            keyframe step), host_ms.upload (feed.upload, a window step),
            host_syncs_per_step (every window span's host_syncs, a window
-           step), and each span name's ms, calls and host syncs a step;
+           step), pose_kernel_launches_per_step (the pose solve's round
+           launches, ops/cuda/pose_kernel.py, a window step), and each span
+           name's ms, calls and host syncs a step;
   setup    the spans before the first batched step (the serial
            bootstraps), ms summed by name;
   sample   (--trace 1) device ms and kernel launches a step of the pose
@@ -80,7 +82,7 @@ def per_name(spans, steps: int) -> dict:
 
 
 def window_readings(all_spans, window, steps: int) -> dict:
-    """The five readings over the spans that start in `window` (ns)."""
+    """The readings over the spans that start in `window` (ns)."""
     t0, t1 = window
     spans = [s for s in all_spans if t0 <= s.start_ns < t1]
     top = [s for s in spans if s.parent < 0 and s.name.startswith("dp.")]
@@ -103,6 +105,8 @@ def window_readings(all_spans, window, steps: int) -> dict:
         "host_ms.upload": ms("feed.upload") / steps,
         "host_syncs_per_step": sum(s.counts.get("host_syncs", 0)
                                    for s in spans) / steps,
+        "pose_kernel_launches_per_step": sum(
+            s.counts.get("pose_kernel_launches", 0) for s in spans) / steps,
         "spans": per_name(spans, steps),
     }
 

@@ -95,11 +95,13 @@ def hand_kernel_counters():
     `.launches`, which counts its launches on the card."""
     from trackingbench_slam_tpu_torch.ops.cuda import (fast_kernel,
                                                        lk_kernel,
-                                                       patch_kernel)
+                                                       patch_kernel,
+                                                       pose_kernel)
     return {"lk_align": lk_kernel.lk_align_cuda,
             "fast_score_nms": fast_kernel.fast_score_nms_cuda,
             "orb_describe": patch_kernel.orb_describe_cuda,
-            "anchor_cells": patch_kernel.anchor_cells_cuda}
+            "anchor_cells": patch_kernel.anchor_cells_cuda,
+            "pose_round": pose_kernel.pose_round_cuda}
 
 
 def time_pipeline(cfg, frames, gt, device):

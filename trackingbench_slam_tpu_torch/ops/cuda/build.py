@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("lk", "fast", "patch")
+SOURCES = ("lk", "fast", "patch", "pose")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,9 +43,12 @@ def _flags(name: str) -> list[str]:
     # The CUDA runtime is linked into each library (nvcc's default, named):
     # torch.profiler attributes its launches to the custom op and the
     # record_function range around them as it does PyTorch's own, and
-    # `-cudart shared` bought nothing (PERF.md).
+    # `-cudart shared` bought nothing (PERF.md). The pose solve rounds
+    # every product and sum alone, as its plain version does, so that its
+    # poses equal the eager path's bit for bit (chip_smoke.py holds it).
     return ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-cudart", "static",
-                         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+                         "-Xcompiler", "-fPIC", "-Xptxas", "-v"] + (
+                             ["-fmad=false"] if name == "pose" else [])
 
 
 def library_path(name: str) -> Path:

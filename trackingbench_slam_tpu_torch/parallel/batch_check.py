@@ -54,6 +54,7 @@ from trackingbench_slam_tpu_torch.models import map as map_mod
 from trackingbench_slam_tpu_torch.models import vo as vo_mod
 from trackingbench_slam_tpu_torch.ops import fast as fast_ops
 from trackingbench_slam_tpu_torch.ops import image as image_ops
+from trackingbench_slam_tpu_torch.ops.cuda import pose_kernel
 from trackingbench_slam_tpu_torch.parallel import dp_eval
 from trackingbench_slam_tpu_torch.solvers import pose_opt
 from trackingbench_slam_tpu_torch.utils import profiling
@@ -71,7 +72,7 @@ WATCHED = (
     (matcher_mod, "lk_pyramidal", True),
     (matcher_mod, "fundamental_ransac", True),
     (pose_opt, "pose_optimization", True),
-    (pose_opt, "lm_pose_iterations", True),
+    (pose_kernel, "pose_round", True),
     (vo_mod, "nanmedian", True), (vo_mod, "with_keypoints", True),
     (vo_mod, "anchored_align", True),
     (vo_mod, "add_fresh_keypoints", True), (vo_mod, "extract_orb", True),

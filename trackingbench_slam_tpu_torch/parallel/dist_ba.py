@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from trackingbench_slam_tpu_torch.geometry import se3
 from trackingbench_slam_tpu_torch.solvers import local_ba
-from trackingbench_slam_tpu_torch.solvers.pose_opt import _huber_rho
+from trackingbench_slam_tpu_torch.solvers.reprojection import huber_rho
 
 
 class ShardedBAProblem(NamedTuple):
@@ -201,7 +201,7 @@ def _flat_cost(cam, T_cw, points, p, huber_delta, stereo_weight):
                                                   stereo_weight)
     chi2 = local_ba._obs_chi2(r, row_ok, p.obs_inv_sigma2)
     chi2 = torch.where(pc[:, 2] <= 0.05, torch.zeros_like(chi2), chi2)
-    rho = chi2 if huber_delta is None else _huber_rho(chi2, huber_delta)
+    rho = chi2 if huber_delta is None else huber_rho(chi2, huber_delta)
     return torch.where(p.obs_valid, rho, torch.zeros_like(rho)).sum()
 
 

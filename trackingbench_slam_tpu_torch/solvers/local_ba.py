@@ -30,8 +30,8 @@ import torch.nn.functional as F
 
 from trackingbench_slam_tpu_torch.geometry import camera as cam_mod
 from trackingbench_slam_tpu_torch.geometry import se3
-from trackingbench_slam_tpu_torch.solvers.pose_opt import (_huber_rho,
-                                                           _huber_weight)
+from trackingbench_slam_tpu_torch.solvers.reprojection import (huber_rho,
+                                                               huber_weight)
 
 
 class BAProblem(NamedTuple):
@@ -123,7 +123,7 @@ def build_ba_blocks(cam, T_cw, points, p: BAProblem,
     chi2 = _obs_chi2(r, row_ok, p.obs_inv_sigma2)
     w = p.obs_inv_sigma2 * p.obs_valid * (pc[:, 2] > 0.05)
     if huber_delta is not None:
-        w = w * _huber_weight(chi2, huber_delta)
+        w = w * huber_weight(chi2, huber_delta)
     W = w[:, None] * row_ok
     Jw = J * W[:, :, None]
     Jlw = Jl * W[:, :, None]
@@ -140,7 +140,7 @@ def build_ba_blocks(cam, T_cw, points, p: BAProblem,
         0, kf, torch.einsum("oij,oi->oj", Jw, r))
     bl = torch.zeros((M, 3), **f32).index_add(
         0, lm, torch.einsum("oij,oi->oj", Jlw, r))
-    rho = chi2 if huber_delta is None else _huber_rho(chi2, huber_delta)
+    rho = chi2 if huber_delta is None else huber_rho(chi2, huber_delta)
     cost = torch.where(p.obs_valid, rho, torch.zeros_like(rho)).sum()
     return U, V, Wb, bp, bl, cost
 
@@ -248,7 +248,7 @@ def build_grouped_blocks(cam, T_cw, points, p: GroupedBAProblem,
     ok = p.obs_valid & (p.obs_kf >= 0) & (pc[..., 2] > 0.05)
     w = p.obs_inv_sigma2 * ok
     if huber_delta is not None:
-        w = w * _huber_weight(chi2, huber_delta)
+        w = w * huber_weight(chi2, huber_delta)
     W = w[..., None] * row_ok
     Jw = J * W[..., None]
     Jlw = Jl * W[..., None]
@@ -263,7 +263,7 @@ def build_grouped_blocks(cam, T_cw, points, p: GroupedBAProblem,
     Jtr = torch.einsum("lorj,lor->loj", Jw, r)
     bp = torch.einsum("lok,loj->kj", onehot, Jtr)
     bl = torch.einsum("lorj,lor->lj", Jlw, r)
-    rho = chi2 if huber_delta is None else _huber_rho(chi2, huber_delta)
+    rho = chi2 if huber_delta is None else huber_rho(chi2, huber_delta)
     cost = torch.where(ok, rho, torch.zeros_like(rho)).sum()
     return U, V, Wb, bp, bl, cost
 
@@ -331,7 +331,7 @@ def bundle_adjust(cam: cam_mod.CameraParams, problem: BAProblem,
                                              stereo_weight)
         chi2 = _obs_chi2(r, row_ok, problem.obs_inv_sigma2)
         chi2 = torch.where(pc[:, 2] <= 0.05, torch.zeros_like(chi2), chi2)
-        rho = chi2 if huber_delta is None else _huber_rho(chi2, huber_delta)
+        rho = chi2 if huber_delta is None else huber_rho(chi2, huber_delta)
         return torch.where(problem.obs_valid, rho,
                            torch.zeros_like(rho)).sum()
 
